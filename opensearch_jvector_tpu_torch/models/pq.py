@@ -1,0 +1,163 @@
+"""Product quantization model (codebooks + codes).
+
+Port of `opensearch_jvector_tpu/models/pq.py` for plain (isotropic) PQ:
+  * k-means++ per subspace, <=256 clusters => 1 byte/code
+  * global-mean centering for EUCLIDEAN, normalized training for COSINE
+  * the reference's dimension-adaptive default subspace count
+Anisotropic codebooks and `refine_pq` wait (ROADMAP queue 1 items 8-9).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from opensearch_jvector_tpu_torch.ops import adc as adc_ops
+from opensearch_jvector_tpu_torch.ops.adc_kernel import adc_scan
+from opensearch_jvector_tpu_torch.ops.distances import SimilarityFunction
+from opensearch_jvector_tpu_torch.ops.kmeans import train_kmeans_subspaces
+
+
+def default_num_subspaces(dim: int) -> int:
+    """Dimension-adaptive PQ subspace count (bytes/vector strictly
+    increasing with dim), snapped down to a divisor of dim."""
+    if dim <= 32:
+        m = dim
+    elif dim <= 64:
+        m = 32
+    elif dim <= 200:
+        m = int(dim * 0.5)
+    elif dim <= 400:
+        m = 100
+    elif dim <= 768:
+        m = int(dim * 0.25)
+    elif dim <= 1536:
+        m = 192
+    else:
+        m = int(dim * 0.125)
+    while dim % m != 0:
+        m -= 1
+    return max(m, 1)
+
+
+@dataclasses.dataclass
+class ProductQuantization:
+    """Trained PQ state: codebooks + the global centering vector."""
+
+    codebooks: torch.Tensor  # [M, K, dsub] f32
+    center: torch.Tensor  # [d] f32 (zeros when centering disabled)
+
+
+def _normalize(v: torch.Tensor) -> torch.Tensor:
+    return v * torch.rsqrt(torch.sum(v * v, -1, keepdim=True) + 1e-30)
+
+
+def _preprocess(vectors: torch.Tensor, simf: SimilarityFunction):
+    """Training-space transform: centering (L2) / normalize (cosine)."""
+    zeros = torch.zeros((vectors.shape[1],), dtype=torch.float32,
+                        device=vectors.device)
+    if simf is SimilarityFunction.COSINE:
+        return _normalize(vectors), zeros
+    if simf is SimilarityFunction.EUCLIDEAN:
+        c = torch.mean(vectors, 0)
+        return vectors - c, c
+    return vectors, zeros
+
+
+TRAIN_ITERS = 8  # Lloyd iterations after k-means++ seeding
+TRAIN_SEED = 0
+
+
+def train_pq(
+    vectors: torch.Tensor,  # [n, d] float32 on the training device
+    simf: SimilarityFunction,
+    num_subspaces: int | None = None,
+    max_train: int = 131072,
+) -> ProductQuantization:
+    """Train PQ codebooks (k-means++ + Lloyd per subspace), K = min(256, n).
+
+    The center is the mean of ALL rows; training samples `max_train` rows
+    with `np.random.default_rng(TRAIN_SEED)`, as the reference does."""
+    n, d = vectors.shape
+    m = num_subspaces or default_num_subspaces(d)
+    if d % m != 0:
+        raise ValueError(f"num_subspaces {m} must divide dim {d}")
+    k = min(256, n)
+    x, center = _preprocess(vectors.float(), simf)
+    if n > max_train:
+        sel = np.sort(np.random.default_rng(TRAIN_SEED).choice(
+            n, max_train, replace=False))
+        x = x[torch.as_tensor(sel, device=x.device)]
+    x_sub = x.reshape(-1, m, d // m).transpose(0, 1).contiguous()
+    gen = torch.Generator(device=vectors.device).manual_seed(TRAIN_SEED)
+    codebooks = train_kmeans_subspaces(x_sub, k, TRAIN_ITERS, gen)
+    return ProductQuantization(codebooks=codebooks, center=center)
+
+
+# Rows per encode step: bounds the [M, rows, K] distance slab (~512 MiB at
+# M=64, K=256). The codes do not depend on it.
+ENCODE_SLAB_BYTES = 1 << 29
+
+
+def encode_pq(pq: ProductQuantization, vectors: torch.Tensor) -> torch.Tensor:
+    """Encode [n, d] -> codes [n, M] uint8 (nearest centroid per subspace).
+
+    argmin over ||c||^2 - 2 x.c (||x||^2 is constant in the argmin), the
+    reference's formula, in full float32."""
+    n = vectors.shape[0]
+    m, k, dsub = pq.codebooks.shape
+    c2 = torch.sum(pq.codebooks * pq.codebooks, -1).unsqueeze(1)  # [M, 1, K]
+    step = max(1, ENCODE_SLAB_BYTES // (m * k * 4))
+    out = torch.empty((n, m), dtype=torch.uint8, device=vectors.device)
+    for s in range(0, n, step):
+        x = vectors[s: s + step] - pq.center
+        x_sub = x.reshape(-1, m, dsub).transpose(0, 1)  # [M, rows, dsub]
+        dots = torch.bmm(x_sub, pq.codebooks.transpose(1, 2))  # [M, rows, K]
+        out[s: s + step] = torch.argmin(c2 - 2.0 * dots, dim=2).T.to(
+            torch.uint8)
+    return out
+
+
+def encode(pq: ProductQuantization, vectors: torch.Tensor,
+           simf: SimilarityFunction) -> torch.Tensor:
+    """Encode a corpus; cosine corpora are encoded normalized."""
+    if simf is SimilarityFunction.COSINE:
+        vectors = _normalize(vectors)
+    return encode_pq(pq, vectors)
+
+
+@dataclasses.dataclass
+class PQVectors:
+    """PQ-encoded corpus: the device-resident approximate phase storage."""
+
+    pq: ProductQuantization
+    codes: torch.Tensor  # [n, M] uint8
+
+    def decode(self, dtype=torch.float32) -> torch.Tensor:
+        """Approximate reconstruction [n, d] (centroid lookup + un-center)."""
+        m, _, dsub = self.pq.codebooks.shape
+        idx = self.codes.long()  # uint8 would index as a boolean mask
+        sub = torch.arange(m, device=idx.device)
+        gathered = self.pq.codebooks[sub, idx]  # [n, M, dsub]
+        flat = gathered.reshape(idx.shape[0], m * dsub)
+        return (flat + self.pq.center).to(dtype)
+
+    def build_query_luts(self, queries: torch.Tensor,
+                         simf: SimilarityFunction) -> torch.Tensor:
+        """Per-query ADC lookup tables [Q, M, K]: center/normalize the
+        queries, score every centroid."""
+        q = queries - self.pq.center
+        if simf is SimilarityFunction.COSINE:
+            q = _normalize(q)
+        m, _, dsub = self.pq.codebooks.shape
+        qsub = q.reshape(q.shape[0], m, dsub)
+        return adc_ops.build_luts(qsub, self.pq.codebooks, simf.is_euclidean)
+
+    def score_scan(self, queries: torch.Tensor, simf: SimilarityFunction,
+                   lo: int = 0, hi: int | None = None) -> torch.Tensor:
+        """Full-scan ADC scores [Q, hi-lo] through the fused ADC scan."""
+        luts = self.build_query_luts(queries, simf)
+        vals = adc_scan(luts, self.codes[lo:hi])
+        return adc_ops.adc_value_to_score(vals, simf)
