@@ -1,28 +1,49 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA card.
+"""Drive the PyTorch port's main paths once on one CUDA card.
 
     python3 chip_smoke.py [--n 1000000] [--queries 10000] [--seed 0]
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. device: card name, and name + power limit as nvidia-smi reports them;
-  2. build: compile the CUDA kernels from the sources in this checkout;
-  3. kernels: every kernel of the path against its plain PyTorch version
-     at the main path's shape and at a ragged shape, with both times;
-  4. main path: VectorIndex(DiskAnnConfig(dim=128)) on "cuda", add_batch +
-     flush of the corpus in 4 flushes (4 segments that each take the scan
-     tier), batched search at k=10, recall@10 against exact ground truth
-     computed on the card, peak device memory, kernel launch counts;
+  2. build: compile the CUDA kernels and the host row store from the
+     sources in this checkout, all compilers started together;
+  3. kernels: every kernel against its plain PyTorch version at the main
+     paths' shapes and at ragged shapes, with the kernel's time, the plain
+     version's, one library call computing the same function, and the
+     bound the card's peak rates set;
+  4. in_memory path: VectorIndex(DiskAnnConfig(dim=128)) on "cuda",
+     add_batch + flush of --n rows in 4 flushes (4 segments that each take
+     the scan tier), batched search at k=10, recall@10 against exact
+     ground truth computed on the card, peak device memory, launches;
   5. reopen: the index directory reopened from commits.json returns the
-     same top-10 ids.
-The corpus is the latent-16 "sift-like" generator of bench.py (make_data),
-made with numpy from --seed. The last two lines are the kernel JSON record
-and {"ok": true, "device": {...}}.
+     same top-10 ids;
+  6. on_disk flat, GIST1M-shaped: 1,000,000 x 960 rows, PQ64, one flush
+     (rows to the host row file), --queries queries in batches of 512 on
+     (a) the decoded-cache rung (default breaker) and (b) the codes-only
+     rungs (breaker limit cut so the cache is refused: decode_scan for
+     512-query batches, adc_scan for a 128-query batch), each at the
+     default overquery factor (recall reported) and at GIST_OVERQUERY
+     (recall@10 held to the target on both rungs and on the 128-query
+     batch, which must agree with decode_scan's rung on the same queries),
+     the routing crossover between the two kernels, and a profile of one
+     512-query batch on each rung;
+  7. on_disk vamana: 500,000 x 128 rows in flushes of 300,000 (beam tier)
+     and 200,000 (scan tier), searched under the default and the tight
+     breaker, and reopened.
+The in_memory corpus is the latent-16 "sift-like" generator of bench.py
+(make_data), the GIST-shaped one the latent-32 960-d generator of
+bench.py's gist section, both made with numpy from --seed. The last two
+lines are the kernel JSON record and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import gc
 import json
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -33,13 +54,32 @@ import numpy as np
 import torch
 
 RECALL_TARGET = 0.95  # BASELINE.json's recall@10 target
-# the cell: SIFT1M-wide rows in the default disk_ann config, flushed as 4
+# phases 4-5: SIFT1M-wide rows in the default disk_ann config, flushed as 4
 # segments of capacity 2^18 (each takes the scan tier, so the kernel),
 # searched in 512-query batches at k=10
 DIM = 128
 FLUSHES = 4
 BATCH = 512
 K = 10
+# phase 6: BASELINE config 3 (GIST1M 960-d, PQ64, fp32 rerank), one flat
+# on_disk flush of capacity 2^20
+GIST_N, GIST_DIM, GIST_LATENT, GIST_M = 1_000_000, 960, 32, 64
+# PQ64 over this corpus misses the recall target at the default rerank
+# depth (overquery factor 5, r = 50 candidates per query): each rung is
+# searched at the default, reported, and at this factor (r = 200), held
+# to the target
+GIST_OVERQUERY = 20
+LUT_BATCH = 128  # below the fused route's 256-query bucket
+CROSSOVER_Q = (64, 128, 256, 512)
+# phase 7: two flushes of 128-d rows, capacities 2^19 (beam tier) and
+# 2^18 (scan tier)
+VAMANA_FLUSHES = (300_000, 200_000)
+VAMANA_QUERIES = 2048
+ON_DISK_SPANS = ("approximate", "rerank_gather", "rerank_score")
+# H100 SXM peaks (NVIDIA data sheet, 700 W): the kernels' bounds
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12  # float32 outside the tensor cores
+PEAK_BF16_S = 989e12  # bf16 tensor cores, dense
 
 
 def log(msg: str) -> None:
@@ -57,6 +97,25 @@ def make_data(rng, n: int, q: int, dim: int):
     return vectors.astype(np.float32), queries.astype(np.float32)
 
 
+def make_gist(rng, n: int, q: int):
+    """Latent-32 960-d corpus + queries (bench.py sec_gist), drawn in
+    float32 blocks (a float64 draw of the corpus would be 7.7 GB)."""
+    a = rng.standard_normal((GIST_LATENT, GIST_DIM), dtype=np.float32)
+    a /= np.sqrt(GIST_LATENT)
+
+    def rows(count):
+        out = np.empty((count, GIST_DIM), np.float32)
+        for s in range(0, count, 1 << 16):
+            b = min(1 << 16, count - s)
+            out[s: s + b] = rng.standard_normal((b, GIST_LATENT),
+                                                dtype=np.float32) @ a
+            out[s: s + b] += 0.05 * rng.standard_normal((b, GIST_DIM),
+                                                        dtype=np.float32)
+        return out
+
+    return rows(n), rows(q)
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device milliseconds of fn() over reps launches (after one)."""
     fn()
@@ -70,9 +129,15 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_adc_scan(q, m, k, n, seed, reps, plain_reps):
-    """adc_scan kernel vs lookup_scan on the card -> (max_abs_err, ms,
-    plain_ms)."""
+def bound_of(nbytes: float, ops: float, peak_ops: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate for their type."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_adc_scan(q, m, k, n, seed, reps, plain_reps, library=False):
+    """adc_scan vs lookup_scan on the card -> record dict."""
     from opensearch_jvector_tpu_torch.ops.adc import lookup_scan
     from opensearch_jvector_tpu_torch.ops.adc_kernel import (
         adc_scan,
@@ -98,15 +163,95 @@ def check_adc_scan(q, m, k, n, seed, reps, plain_reps):
     if bad or not torch.isfinite(out).all():
         raise AssertionError(f"adc_scan disagrees with lookup_scan at "
                              f"Q={q} M={m} K={k} N={n}")
+    del out, ref, err, bound
     ms = cuda_ms(lambda: adc_scan(luts, codes), reps)
     plain_ms = cuda_ms(lambda: lookup_scan(luts, codes), plain_reps)
-    log(f"  adc_scan {ms:.4f} ms, plain lookup_scan {plain_ms:.4f} ms")
-    return max_err, ms, plain_ms
+    bound_ms, bound_by = bound_of(n * m + q * m * k * 4 + q * n * 4,
+                                  q * n * m, PEAK_F32_S)
+    library_ms = None
+    if library:
+        # one library call for the same function: a summing embedding bag
+        # over a [M*K, Q] table; index and table preparation untimed
+        idx = (codes.long() + torch.arange(m, device="cuda") * k).contiguous()
+        table = luts.permute(1, 2, 0).reshape(m * k, q).contiguous()
+        lib_out = torch.nn.functional.embedding_bag(idx, table, mode="sum")
+        if not torch.allclose(lib_out.T, lookup_scan(luts, codes),
+                              rtol=1e-4, atol=1e-3):
+            raise AssertionError("embedding_bag yardstick computes another "
+                                 "function")
+        del lib_out
+        library_ms = cuda_ms(lambda: torch.nn.functional.embedding_bag(
+            idx, table, mode="sum"), reps)
+    log(f"  adc_scan {ms:.4f} ms, plain lookup_scan {plain_ms:.4f} ms, "
+        f"library embedding_bag {library_ms} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by})")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
-def profile_batch(index, queries, sc) -> None:
+def check_decode_scan(q, n, m, k, dsub, seed, reps, plain_reps,
+                      library=False):
+    """decode_scan vs decode_scan_reference on the card -> record dict."""
+    from opensearch_jvector_tpu_torch.ops.pq_scan_kernel import (
+        decode_scan,
+        decode_scan_reference,
+        kernel_error_bound,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q_c = torch.randn((q, m * dsub), generator=gen, device="cuda")
+    codes = torch.randint(0, k, (n, m), generator=gen, device="cuda",
+                          dtype=torch.uint8)
+    cb = torch.randn((m, k, dsub), generator=gen, device="cuda")
+    out = decode_scan(q_c, codes, cb)
+    err = (out - decode_scan_reference(q_c, codes, cb)).abs_()
+    torch.cuda.synchronize()
+    assert out.shape == (q, n) and out.dtype == torch.float32
+    finite = bool(torch.isfinite(out).all())
+    del out
+    bound = kernel_error_bound(q_c, codes, cb)
+    bad = int((err > bound).sum())
+    max_err = float(err.max())
+    share = float((err / bound).max())
+    del err, bound
+    log(f"  decode_scan Q={q} N={n} M={m} K={k} dsub={dsub}: "
+        f"max_abs_err={max_err:.3e}, largest share of the bound "
+        f"2^-7*sum|q||dec| {share:.4f}, out of bound: {bad}")
+    if bad or not finite:
+        raise AssertionError(f"decode_scan disagrees with its plain version "
+                             f"at Q={q} N={n} M={m} K={k} dsub={dsub}")
+    ms = cuda_ms(lambda: decode_scan(q_c, codes, cb), reps)
+    plain_ms = cuda_ms(lambda: decode_scan_reference(q_c, codes, cb),
+                       plain_reps)
+    d = m * dsub
+    bound_ms, bound_by = bound_of(
+        n * m + q * d * 4 + m * k * dsub * 4 + q * n * 4, 2.0 * q * n * d,
+        PEAK_BF16_S)
+    library_ms = None
+    if library:
+        # the decoded-cache rung's product: one bf16 matmul over a cache
+        # decoded beforehand (2*d bytes per row, the memory this kernel
+        # exists to avoid); the decode is untimed
+        from opensearch_jvector_tpu_torch.ops.pq_scan_kernel import (
+            _padded_codebooks,
+        )
+        dec = _padded_codebooks(cb)[torch.arange(m, device="cuda"),
+                                    codes.long()].reshape(n, d).bfloat16()
+        qb = q_c.bfloat16()
+        library_ms = cuda_ms(lambda: torch.mm(qb, dec.T,
+                                              out_dtype=torch.float32), reps)
+        del dec
+    log(f"  decode_scan {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"bf16 matmul on a decoded cache {library_ms} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def profile_batch(index, queries, sc, expect: str | None = None) -> None:
     """Where one search batch's time goes: device time by kernel and the
-    device's busy share of the batch's wall time (torch.profiler)."""
+    device's busy share of the batch's wall time (torch.profiler). A
+    kernel named `expect` that is missing from the trace is reported."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -116,18 +261,65 @@ def profile_batch(index, queries, sc) -> None:
         index.search(queries, sc)
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
-    # device-only rows (kernels, copies); CPU-side ops and the "query"
-    # phase annotation would count their kernels' time twice
+    # device-only rows (kernels, copies); CPU-side ops and the profiler
+    # ranges ("query" and the on_disk stages, which the trace also shows as
+    # device annotations) would count their kernels' time twice
+    ranges = ("query",) + ON_DISK_SPANS
     rows = [(e.self_device_time_total, e.key, e.count)
             for e in prof.key_averages()
-            if e.self_cpu_time_total == 0 and e.key != "query"]
+            if e.self_cpu_time_total == 0 and e.key not in ranges]
     rows = sorted((r for r in rows if r[0] > 0), reverse=True)
     busy = sum(r[0] for r in rows)
     log(f"  profile of one {queries.shape[0]}-query batch: wall "
         f"{wall_us / 1000:.3f} ms, device busy {busy / 1000:.3f} ms "
         f"({100 * busy / wall_us:.1f}% of wall)")
-    for us, key, count in rows[:8]:
+    for us, key, count in rows[:10]:
         log(f"    {us / 1000:9.3f} ms  x{count:<4d} {key[:90]}")
+    if expect and not any(expect in key for _, key, _ in rows):
+        log(f"  {expect} is missing from the trace: device busy is "
+            f"understated")
+    # the on_disk search's stages (profiler ranges in index/reader.py), on
+    # the host's clock
+    spans = {}
+    for e in prof.key_averages():
+        if e.key in ON_DISK_SPANS:  # the host range, not its device twin
+            spans[e.key] = max(spans.get(e.key, 0), e.cpu_time_total)
+    if spans:
+        log("  on_disk stages (host clock): " + ", ".join(
+            f"{k} {spans[k] / 1000:.3f} ms" for k in ON_DISK_SPANS
+            if k in spans))
+
+
+def search_all(index, queries, sc):
+    """Search `queries` in BATCH-query batches -> (ids, scores, seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    ids, scores = [], []
+    for s in range(0, queries.shape[0], BATCH):
+        res = index.search(queries[s: s + BATCH], sc)
+        ids.append(res.doc_ids)
+        scores.append(res.scores)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    ids, scores = np.concatenate(ids), np.concatenate(scores)
+    assert ids.shape == (queries.shape[0], sc.k)
+    assert np.isfinite(scores).all() and (ids >= 0).all()
+    return ids, scores, wall
+
+
+def tight_breaker_limit(settings, breaker) -> float:
+    """A circuit-breaker limit (percent of the card) that admits what is
+    in use plus 32 MiB: an on_disk segment's 4 B/row codes_sq fits, its
+    2*d B/row decoded cache does not (67 MB and more in phases 6-7): an
+    operator capping the kNN share of the card."""
+    total, in_use = breaker.device_memory(torch.device("cuda"))
+    limit = 100.0 * (in_use + (32 << 20)) / total
+    settings.put("knn.memory.circuit_breaker.limit", limit)
+    return limit
+
+
+def kernel_counts(*kernels) -> dict:
+    return {k.__name__: k.launches for k in kernels}
 
 
 def main() -> int:
@@ -147,50 +339,79 @@ def main() -> int:
         DiskAnnConfig,
         SearchConfig,
     )
+    from opensearch_jvector_tpu_torch.api.settings import GLOBAL_SETTINGS
     from opensearch_jvector_tpu_torch.api.stats import Counter
     from opensearch_jvector_tpu_torch.index.index import VectorIndex
     from opensearch_jvector_tpu_torch.models.pq import default_num_subspaces
     from opensearch_jvector_tpu_torch.ops import _kernels
     from opensearch_jvector_tpu_torch.ops.adc_kernel import adc_scan
     from opensearch_jvector_tpu_torch.ops.distances import SimilarityFunction
+    from opensearch_jvector_tpu_torch.ops.pq_scan_kernel import decode_scan
+    from opensearch_jvector_tpu_torch.utils.circuit_breaker import BREAKER
     from opensearch_jvector_tpu_torch.utils.ground_truth import (
         ground_truth_topk,
         recall_at_k,
     )
 
+    # the plain versions' float32 products run in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # keep CUPTI set up between the profiles of one run: after a teardown
+    # and re-init, a trace can miss the kernels of the ctypes-loaded
+    # libraries
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    log(f"[1/5] device: {kind} (torch {torch.__version__}, "
+    log(f"[1/7] device: {kind} (torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} visible)")
     log(smi)
 
     # ---- 2. build ----------------------------------------------------------
     t0 = time.monotonic()
-    lib = _kernels.build("adc_scan")
-    log(f"[2/5] build: {lib.name} in {time.monotonic() - t0:.1f} s")
-    for line in _kernels.BUILD_LOGS.get("adc_scan", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    names = ("adc_scan", "decode_scan", "vector_store")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        libs = dict(zip(names, pool.map(_kernels.build, names)))
+    log(f"[2/7] build: {', '.join(p.name for p in libs.values())} in "
+        f"{time.monotonic() - t0:.1f} s (compilers started together)")
+    for name in names:
+        for line in _kernels.BUILD_LOGS.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
 
     # ---- 3. kernels vs plain ----------------------------------------------
-    log("[3/5] kernels vs plain PyTorch on the card")
+    log("[3/7] kernels vs plain PyTorch on the card")
     m = default_num_subspaces(DIM)  # the subspaces the flushes train
-    max_err, ms, plain_ms = check_adc_scan(
-        BATCH, m, 256, 1 << 18, args.seed, reps=20, plain_reps=3)
+    adc_rec = check_adc_scan(BATCH, m, 256, 1 << 18, args.seed, reps=20,
+                             plain_reps=3, library=True)
     check_adc_scan(3, 8, 64, 1000, args.seed + 1, reps=20, plain_reps=20)
+    # the on_disk phases' shapes: the Q=1 codes_sq table over phase 6's
+    # 2^20 codes and phase 7's 2^18, and the LUT rung's batch in phase 6
+    for i, (q, m_, n) in enumerate([(1, GIST_M, 1 << 20), (1, m, 1 << 18),
+                                    (LUT_BATCH, GIST_M, 1 << 20)]):
+        check_adc_scan(q, m_, 256, n, args.seed + 10 + i, reps=5,
+                       plain_reps=2)
+    dsub = GIST_DIM // GIST_M
+    dec_rec = check_decode_scan(BATCH, 1 << 20, GIST_M, 256, dsub,
+                                args.seed + 2, reps=5, plain_reps=2,
+                                library=True)
+    for i, shape in enumerate([(3, 1000, 8, 64, 21), (1, 777, GIST_M, 256,
+                                                      dsub),
+                               (BATCH, 1 << 18, m, 256, DIM // m)]):
+        check_decode_scan(*shape, args.seed + 3 + i, reps=5, plain_reps=2)
+    torch.cuda.empty_cache()
 
-    # ---- 4. main path -------------------------------------------------------
+    # ---- 4. in_memory path ---------------------------------------------------
     rng = np.random.default_rng(args.seed)
     vectors, queries = make_data(rng, args.n, args.queries, DIM)
     sc = SearchConfig(k=K)
-    log(f"[4/5] main path: {args.n} x {DIM} in {FLUSHES} flushes, "
+    log(f"[4/7] in_memory path: {args.n} x {DIM} in {FLUSHES} flushes, "
         f"{args.queries} queries in batches of {BATCH}, k={K}")
     torch.cuda.reset_peak_memory_stats()
-    adc_scan.launches = 0
+    launches = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         index = VectorIndex(root, DiskAnnConfig(dim=DIM), device="cuda")
         bounds = np.linspace(0, args.n, FLUSHES + 1).astype(int)
@@ -209,25 +430,11 @@ def main() -> int:
                 f"{(hi - lo) / dt:.0f} vec/s (PQ train+encode {pq_ms} ms, "
                 f"graph build {build_ms} ms)")
 
-        def search_all(idx):
-            ids, scores = [], []
-            for s in range(0, args.queries, BATCH):
-                res = idx.search(queries[s: s + BATCH], sc)
-                ids.append(res.doc_ids)
-                scores.append(res.scores)
-            return np.concatenate(ids), np.concatenate(scores)
-
         index.search(queries[: BATCH], sc)  # warm: segment loads
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        ids, scores = search_all(index)
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-        launches = adc_scan.launches
+        adc_scan.launches = decode_scan.launches = 0
+        ids, scores, wall = search_all(index, queries, sc)
+        launches["in_memory"] = kernel_counts(adc_scan, decode_scan)
         peak = torch.cuda.max_memory_allocated()
-        assert ids.shape == (args.queries, K)
-        assert np.isfinite(scores).all() and (ids >= 0).all()
-
         gt = ground_truth_topk(
             torch.as_tensor(queries, device="cuda"),
             torch.as_tensor(vectors, device="cuda"),
@@ -238,11 +445,11 @@ def main() -> int:
         log(f"  recall@{K} = {recall:.4f} (target {RECALL_TARGET})")
         log(f"  peak device memory (max_memory_allocated): {peak} B "
             f"= {peak / 2**30:.2f} GiB")
-        log(f"  adc_scan launches on the main path: {launches}")
-        profile_batch(index, queries[: BATCH], sc)
+        log(f"  launches on this path: {launches['in_memory']}")
+        profile_batch(index, queries[: BATCH], sc, "adc_scan_kernel")
         if recall < RECALL_TARGET:
             raise AssertionError(f"recall@{K} {recall} < {RECALL_TARGET}")
-        if launches <= 0:
+        if launches["in_memory"]["adc_scan"] <= 0:
             raise AssertionError("the search path never launched adc_scan")
 
         # ---- 5. reopen -------------------------------------------------------
@@ -250,22 +457,243 @@ def main() -> int:
         reopened = VectorIndex(root, device="cuda")
         again = reopened.search(queries[: BATCH], sc).doc_ids
         same = bool((again == ids[: BATCH]).all())
-        log(f"[5/5] reopen from commits.json: {len(reopened.segment_names)} "
+        log(f"[5/7] reopen from commits.json: {len(reopened.segment_names)} "
             f"segments, identical top-{K} ids for {BATCH} "
             f"queries: {same}")
         if not same:
             raise AssertionError("reopened index returned other ids")
+        reopened.close()
+    del vectors, queries, index, reopened
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": [{
-        "name": "adc_scan",
-        "route": "cuda",
-        "source": "opensearch_jvector_tpu_torch/csrc/adc_scan.cu",
-        "replaces": "opensearch_jvector_tpu/ops/pallas/adc_kernel.py:61",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+    # ---- 6. on_disk flat, GIST1M-shaped --------------------------------------
+    crossover = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gist_") as root:
+        free = shutil.disk_usage(root).free
+        if free < GIST_N * GIST_DIM * 4 + (2 << 30):
+            raise RuntimeError(f"{free} B free under {root}: the GIST row "
+                               f"file needs {GIST_N * GIST_DIM * 4} B and "
+                               f"2 GiB to spare")
+        grng = np.random.default_rng(args.seed + 41)
+        t0 = time.monotonic()
+        gv, gq = make_gist(grng, GIST_N, args.queries)
+        log(f"[6/7] on_disk flat GIST1M-shaped: {GIST_N} x {GIST_DIM}, "
+            f"PQ{GIST_M}, {args.queries} queries in batches of {BATCH}, "
+            f"k={K} (data made in {time.monotonic() - t0:.1f} s)")
+        gt = ground_truth_topk(torch.as_tensor(gq, device="cuda"),
+                               torch.as_tensor(gv, device="cuda"), K,
+                               SimilarityFunction.EUCLIDEAN)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = DiskAnnConfig(dim=GIST_DIM, mode="on_disk", index_type="flat",
+                            quantization_type="pq", num_pq_subspaces=GIST_M,
+                            similarity=SimilarityFunction.EUCLIDEAN)
+        torch.cuda.reset_peak_memory_stats()
+        index = VectorIndex(root, cfg, device="cuda")
+        before = index.stats.snapshot()
+        t0 = time.monotonic()
+        index.add_batch(np.arange(GIST_N), gv)
+        name = index.flush()
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        pq_ms = (index.stats.snapshot()[
+            Counter.KNN_QUANTIZATION_TRAINING_TIME.value]
+            - before[Counter.KNN_QUANTIZATION_TRAINING_TIME.value])
+        log(f"  flush {name}: {GIST_N} vectors in {dt:.2f} s = "
+            f"{GIST_N / dt:.0f} vec/s (PQ train+encode {pq_ms} ms; row "
+            f"file, CRC and containers {1000 * dt - pq_ms:.0f} ms); peak "
+            f"device memory {torch.cuda.max_memory_allocated()} B")
+        index.close()
+        del gv
+        gc.collect()
+
+        deep = SearchConfig(k=K, overquery_factor=GIST_OVERQUERY)
+        results = {}
+        for rung in ("decoded", "codes_only"):
+            index = VectorIndex(root, device="cuda")
+            reader = index._reader(name)
+            if not reader.seg.row_store.is_native:
+                raise AssertionError("the host row store is not native")
+            limit = 50.0
+            if rung == "codes_only":
+                limit = tight_breaker_limit(GLOBAL_SETTINGS, BREAKER)
+            torch.cuda.reset_peak_memory_stats()
+            adc_scan.launches = decode_scan.launches = 0
+            index.search(gq[:BATCH], sc)  # warm: caches, allocator
+            ids, _, wall = search_all(index, gq, sc)
+            deep_ids, _, deep_wall = search_all(index, gq, deep)
+            small_ms = None
+            if rung == "codes_only":
+                # one batch below the fused route's bucket: the LUT rung
+                before_lut = adc_scan.launches
+                t0 = time.monotonic()
+                small = index.search(gq[:LUT_BATCH], deep)
+                small_ms = 1000 * (time.monotonic() - t0) / LUT_BATCH
+                lut_launches = adc_scan.launches - before_lut
+                assert (small.doc_ids >= 0).all()
+                # against the same queries' answers from decode_scan's rung
+                lut_recall = recall_at_k(small.doc_ids, gt[:LUT_BATCH], K)
+                fused_recall = recall_at_k(deep_ids[:LUT_BATCH],
+                                           gt[:LUT_BATCH], K)
+            launches[f"gist_{rung}"] = kernel_counts(adc_scan, decode_scan)
+            peak = torch.cuda.max_memory_allocated()
+            recall_default = recall_at_k(ids, gt, K)
+            recall = recall_at_k(deep_ids, gt, K)
+            results[rung] = recall
+            log(f"  ({'a' if rung == 'decoded' else 'b'}) {rung} rung, "
+                f"breaker limit {limit:.4f}%: overquery "
+                f"{sc.overquery_factor}: {1000 * wall / len(gq):.5f} "
+                f"ms/query batched ({wall:.3f} s), recall@{K} "
+                f"{recall_default:.4f}; overquery {GIST_OVERQUERY}: "
+                f"{1000 * deep_wall / len(gq):.5f} ms/query batched "
+                f"({deep_wall:.3f} s), recall@{K} {recall:.4f}; peak device "
+                f"memory {peak} B, decoded cache "
+                f"{'built' if reader._pq_decoded is not None else 'refused'}"
+                f", launches {launches[f'gist_{rung}']}"
+                + (f"; {LUT_BATCH}-query batch {small_ms:.5f} ms/query"
+                   if small_ms is not None else ""))
+            profile_batch(index, gq[:BATCH], deep,
+                          "decode_scan_kernel" if rung == "codes_only"
+                          else None)
+            if rung == "codes_only":
+                lut_gap = abs(lut_recall - fused_recall)
+                log(f"  {LUT_BATCH}-query LUT batch: adc_scan launches "
+                    f"{lut_launches}, recall@{K} {lut_recall:.4f}; the same "
+                    f"queries on the decode_scan rung {fused_recall:.4f}, "
+                    f"gap {lut_gap:.4f} (limit 0.005)")
+                if lut_launches <= 0:
+                    raise AssertionError("the LUT batch never launched "
+                                         "adc_scan")
+                if lut_recall < RECALL_TARGET or lut_gap > 0.005:
+                    raise AssertionError(
+                        f"LUT rung recall@{K} {lut_recall} (decode_scan "
+                        f"rung {fused_recall}, target {RECALL_TARGET})")
+                # routing crossover: both kernels over the segment's codes
+                pqv = reader.seg.pqv
+                q_all = torch.as_tensor(gq[:max(CROSSOVER_Q)], device="cuda")
+                q_c = (q_all - pqv.pq.center).contiguous()
+                luts = pqv.build_query_luts(q_all, cfg.similarity)
+                for qn in CROSSOVER_Q:
+                    qc, lt = q_c[:qn].contiguous(), luts[:qn].contiguous()
+                    t_dec = cuda_ms(lambda: decode_scan(
+                        qc, pqv.codes, pqv.pq.codebooks), 3)
+                    t_adc = cuda_ms(lambda: adc_scan(lt, pqv.codes), 3)
+                    crossover[qn] = (t_dec, t_adc)
+                    log(f"  crossover Q={qn}: decode_scan {t_dec:.4f} ms, "
+                        f"adc_scan {t_adc:.4f} ms over {pqv.codes.shape[0]}"
+                        f" codes ({'decode_scan' if t_dec < t_adc else 'adc_scan'}"
+                        f" faster)")
+                del q_all, q_c, luts
+            GLOBAL_SETTINGS.put("knn.memory.circuit_breaker.limit", 50.0)
+            index.close()
+            del index, reader
+            gc.collect()
+            torch.cuda.empty_cache()
+        gist_launches = launches["gist_codes_only"]
+        if gist_launches["decode_scan"] <= 0 or gist_launches["adc_scan"] <= 0:
+            raise AssertionError(f"the codes-only rung did not launch both "
+                                 f"kernels: {gist_launches}")
+        gap = abs(results["decoded"] - results["codes_only"])
+        log(f"  recall@{K} at overquery {GIST_OVERQUERY}: decoded "
+            f"{results['decoded']:.4f}, codes-only "
+            f"{results['codes_only']:.4f}, gap {gap:.4f} (limit 0.005)")
+        for rung, rec in results.items():
+            if rec < RECALL_TARGET:
+                raise AssertionError(f"GIST {rung} recall@{K} {rec} < "
+                                     f"{RECALL_TARGET}")
+        if gap > 0.005:
+            raise AssertionError(f"rungs disagree: recall gap {gap}")
+    del gq, gt
+    gc.collect()
+
+    # ---- 7. on_disk vamana ----------------------------------------------------
+    vrng = np.random.default_rng(args.seed + 7)
+    n_v = sum(VAMANA_FLUSHES)
+    vv, vq = make_data(vrng, n_v, VAMANA_QUERIES, DIM)
+    log(f"[7/7] on_disk vamana: {n_v} x {DIM} in flushes of "
+        f"{VAMANA_FLUSHES}, {VAMANA_QUERIES} queries, k={K}")
+    gt = ground_truth_topk(torch.as_tensor(vq, device="cuda"),
+                           torch.as_tensor(vv, device="cuda"), K,
+                           SimilarityFunction.EUCLIDEAN)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_vamana_") as root:
+        index = VectorIndex(root, DiskAnnConfig(dim=DIM, mode="on_disk"),
+                            device="cuda")
+        lo = 0
+        for count in VAMANA_FLUSHES:
+            t0 = time.monotonic()
+            index.add_batch(np.arange(lo, lo + count), vv[lo: lo + count])
+            name = index.flush()
+            torch.cuda.synchronize()
+            dt = time.monotonic() - t0
+            cap = index._reader(name).seg.capacity()
+            log(f"  flush {name}: {count} vectors in {dt:.2f} s = "
+                f"{count / dt:.0f} vec/s, capacity {cap} "
+                f"({'beam' if cap > 1 << 18 else 'scan'} tier)")
+            lo += count
+        index.close()
+        first = None
+        for rung in ("default", "tight"):
+            index = VectorIndex(root, device="cuda")
+            for n_ in index.segment_names:
+                index._reader(n_)  # load before the breaker tightens
+            if rung == "tight":
+                tight_breaker_limit(GLOBAL_SETTINGS, BREAKER)
+            adc_scan.launches = decode_scan.launches = 0
+            before = index.stats.snapshot()
+            ids, _, wall = search_all(index, vq, sc)
+            after = index.stats.snapshot()
+            launches[f"vamana_{rung}"] = kernel_counts(adc_scan, decode_scan)
+            expanded = (after[Counter.KNN_QUERY_EXPANDED_NODES.value]
+                        - before[Counter.KNN_QUERY_EXPANDED_NODES.value])
+            recall = recall_at_k(ids, gt, K)
+            # the decoded cache serves the pq_decoded provider (beam tier)
+            # and the first scan rung; refused, the beam tier takes the pq
+            # provider and the scan tier the codes-only kernels
+            cached = [index._reader(n_)._pq_decoded is not None
+                      for n_ in index.segment_names]
+            log(f"  {rung} breaker: {1000 * wall / len(vq):.5f} ms/query "
+                f"batched, recall@{K} {recall:.4f}, beam expansions "
+                f"{expanded}, decoded cache built per segment {cached}, "
+                f"launches {launches[f'vamana_{rung}']}")
+            GLOBAL_SETTINGS.put("knn.memory.circuit_breaker.limit", 50.0)
+            if cached != [rung == "default"] * len(cached):
+                raise AssertionError(f"{rung} breaker: decoded cache per "
+                                     f"segment {cached}")
+            if recall < RECALL_TARGET:
+                raise AssertionError(f"vamana {rung} recall@{K} {recall} < "
+                                     f"{RECALL_TARGET}")
+            if expanded <= 0:
+                raise AssertionError("the beam tier never ran")
+            if rung == "tight" and launches["vamana_tight"]["decode_scan"] <= 0:
+                raise AssertionError("the tight scan tier never launched "
+                                     "decode_scan")
+            if first is None:
+                first = ids
+            index.close()
+        reopened = VectorIndex(root, device="cuda")
+        again = search_all(reopened, vq[:BATCH], sc)[0]
+        same = bool((again == first[:BATCH]).all())
+        log(f"  reopen: identical top-{K} ids for {BATCH} queries: {same}")
+        reopened.close()
+        if not same:
+            raise AssertionError("reopened on_disk index returned other ids")
+
+    total = {k: sum(v[k] for v in launches.values())
+             for k in ("adc_scan", "decode_scan")}
+    log(f"launches by path: {launches}")
+    log(f"routing crossover (decode_scan ms, adc_scan ms): {crossover}")
+    print(json.dumps({"kernels": [
+        {"name": "adc_scan", "route": "cuda",
+         "source": "opensearch_jvector_tpu_torch/csrc/adc_scan.cu",
+         "replaces": "opensearch_jvector_tpu/ops/pallas/adc_kernel.py:61",
+         "launches": total["adc_scan"], **adc_rec},
+        {"name": "decode_scan", "route": "cuda",
+         "source": "opensearch_jvector_tpu_torch/csrc/decode_scan.cu",
+         "replaces":
+             "opensearch_jvector_tpu/ops/pallas/pq_scan_kernel.py:112",
+         "launches": total["decode_scan"], **dec_rec},
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -16,6 +16,7 @@ from opensearch_jvector_tpu_torch.index.docmap import DocMap
 from opensearch_jvector_tpu_torch.index.segment import Segment
 from opensearch_jvector_tpu_torch.models.graph import VamanaGraph
 from opensearch_jvector_tpu_torch.models.pq import PQVectors, ProductQuantization
+from opensearch_jvector_tpu_torch.utils.native_store import PagedVectorStore
 
 
 def _t(a, dtype, device) -> torch.Tensor:
@@ -47,17 +48,24 @@ def segment_from_numpy(
     codebooks=None, center=None, codes=None,  # PQ state, codes [capacity, M]
     ord_to_parent=None,
     device: torch.device | str = "cpu",
+    rows_path=None,  # on_disk: the segment's raw row file, not `vectors`
 ) -> Segment:
-    """A whole in-memory segment from numpy arrays."""
+    """A whole segment from numpy arrays. An on_disk segment gives the path
+    of its raw fp32 row file (`rows.f32`) in place of device rows."""
+    if rows_path is not None and vectors is not None:
+        raise ValueError("an on_disk segment takes rows_path, not vectors")
+    config = DiskAnnConfig.from_meta(config_meta)
     pqv = None
     if codes is not None:
         pqv = PQVectors(pq=pq_from_numpy(codebooks, center, device),
                         codes=_t(codes, np.uint8, device))
     return Segment(
         name=name,
-        config=DiskAnnConfig.from_meta(config_meta),
+        config=config,
         graph=graph_from_numpy(adjacency, degrees, live, entry, device),
         docmap=DocMap(ord_to_doc, ord_to_parent),
         vectors=None if vectors is None else _t(vectors, np.float32, device),
         pqv=pqv,
+        row_store=(None if rows_path is None
+                   else PagedVectorStore(rows_path, dim=config.dim)),
     )

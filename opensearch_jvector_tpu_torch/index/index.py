@@ -6,7 +6,9 @@ top-k merge, and the commit model (`commits.json` lists the live segment
 set and the per-segment tombstones). An index directory written by either
 package opens in the other.
 
-Segments are searched in a plain loop. Deletes, merges and the merge
+Segments of either mode (in_memory, on_disk) are searched in a plain
+loop; the readers own the on_disk segments' host row stores and `close()`
+releases them. Deletes, merges and the merge
 scheduler wait (ROADMAP queue 1 item 8); tombstones already committed by
 the reference are honoured at search time and kept on commit.
 """
@@ -73,10 +75,15 @@ class VectorIndex:
         self._closed = False
 
     def close(self) -> None:
-        """Refuse new flushes and wait for an in-flight one."""
+        """Refuse new flushes, wait for an in-flight one, and release the
+        open segments' host row stores (a later search reopens them)."""
         self._closed = True
         with self._flush_serial:
             pass
+        with self._lock:
+            readers, self._readers = self._readers, {}
+        for reader in readers.values():
+            reader.close()
 
     # -- commit model --------------------------------------------------------
 

@@ -7,14 +7,17 @@ containers (index/store.py):
 
   meta.jvtpu     config + counts + quantization type byte
   graph.jvtpu    adjacency/degrees/live/entry (+ hierarchy layer if any)
-  vectors.jvtpu  fp32 rows
+  vectors.jvtpu  fp32 rows; for on_disk PQ segments only the marker
+                 {"kind": "fp32_ondisk"}, the rows being in:
+  rows.f32       raw row-major fp32 rows (+ rows.f32.crc: crc32, bytes),
+                 read through the host row store (utils/native_store.py)
   pq.jvtpu       PQ codebooks + center + codes
   docmap.jvtpu   ordinal->doc map
 
 Files store the used-ordinal prefix; `read_segment` re-pads the device
-tensors to the pow2 capacity. NVQ and scalar segments, anisotropic PQ state
-and on_disk row files are not ported yet: reading one raises
-NotImplementedError naming its ROADMAP item.
+tensors to the pow2 capacity. NVQ and scalar segments and anisotropic PQ
+state are not ported yet: reading one raises NotImplementedError naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -39,6 +42,11 @@ from opensearch_jvector_tpu_torch.models.graph import (
 )
 from opensearch_jvector_tpu_torch.models.pq import PQVectors, ProductQuantization
 from opensearch_jvector_tpu_torch.utils.circuit_breaker import BREAKER
+from opensearch_jvector_tpu_torch.utils.native_store import (
+    PagedVectorStore,
+    verify_row_file,
+    write_row_file,
+)
 
 # NONE/PQ/NVQ bytes mirror the reference (JVectorIndexQuantization.java:
 # 51-53); 3-5 are the scalar modes
@@ -50,21 +58,25 @@ NOT_PORTED = {
     "scalar": "scalar (1/2/4-bit) segments are not ported yet "
               "(ROADMAP queue 1 item 9)",
     "aniso": "anisotropic PQ is not ported yet (ROADMAP queue 1 item 9)",
-    "on_disk": "on_disk segments are not ported yet "
-               "(ROADMAP queue 1 item 10)",
 }
 
 
 @dataclasses.dataclass
 class Segment:
-    """In-memory (device-resident) segment."""
+    """In-memory (device-resident) segment.
+
+    `row_store` (on_disk mode) replaces `vectors`: the fp32 rows stay in
+    the host row store and only rerank candidates are paged. A segment
+    built for writing may carry its on_disk rows as a host numpy array in
+    `vectors`; `write_segment` puts them into the row file."""
 
     name: str
     config: DiskAnnConfig
     graph: VamanaGraph
     docmap: DocMap
-    vectors: torch.Tensor | None = None  # fp32 [capacity, d]
+    vectors: torch.Tensor | np.ndarray | None = None  # fp32 [capacity, d]
     pqv: PQVectors | None = None
+    row_store: PagedVectorStore | None = None
 
     @property
     def quantization_type(self) -> str:
@@ -106,11 +118,17 @@ def write_segment(root: str | Path, seg: Segment) -> Path:
     store.write_container(
         d / "graph.jvtpu", {"entry": int(seg.graph.entry)}, graph_arrays
     )
-    if seg.vectors is not None:
+    on_disk = seg.config.mode == "on_disk" and seg.pqv is not None
+    if seg.row_store is not None or (on_disk and seg.vectors is not None):
+        if seg.vectors is not None:
+            write_row_file(d / "rows.f32", _host_rows(seg.vectors[:used]))
+        store.write_container(d / "vectors.jvtpu", {"kind": "fp32_ondisk"},
+                              {})
+    elif seg.vectors is not None:
         store.write_container(
             d / "vectors.jvtpu",
             {"kind": "fp32"},
-            {"vectors": seg.vectors[:used].cpu().numpy().astype(np.float32)},
+            {"vectors": _host_rows(seg.vectors[:used])},
         )
     if seg.pqv is not None:
         store.write_container(d / "pq.jvtpu", {}, {
@@ -125,6 +143,12 @@ def write_segment(root: str | Path, seg: Segment) -> Path:
     return d
 
 
+def _host_rows(rows: torch.Tensor | np.ndarray) -> np.ndarray:
+    if isinstance(rows, torch.Tensor):
+        rows = rows.cpu().numpy()
+    return np.asarray(rows, np.float32)
+
+
 def read_segment(path: str | Path, device: torch.device | str,
                  verify: bool = True) -> Segment:
     """Load a segment directory onto `device` (checksums verified)."""
@@ -132,8 +156,6 @@ def read_segment(path: str | Path, device: torch.device | str,
     device = torch.device(device)
     meta, _ = store.read_container(d / "meta.jvtpu", verify=verify)
     config = DiskAnnConfig.from_meta(meta["config"])
-    if config.mode == "on_disk":
-        raise NotImplementedError(NOT_PORTED["on_disk"])
     if (d / "scalar.jvtpu").exists():
         raise NotImplementedError(NOT_PORTED["scalar"])
     BREAKER.check(
@@ -142,6 +164,7 @@ def read_segment(path: str | Path, device: torch.device | str,
             config.neighbor_overflow,
             config.num_pq_subspaces
             if config.quantization_type != QUANT_NONE else None,
+            keep_fp32=config.mode != "on_disk",
         ),
         device,
     )
@@ -167,14 +190,16 @@ def read_segment(path: str | Path, device: torch.device | str,
     docmap = DocMap(darr["ord_to_doc"], darr.get("ord_to_parent"))
 
     vectors = None
+    row_store = None
     vpath = d / "vectors.jvtpu"
     if vpath.exists():
         vmeta, varr = store.read_container(vpath, verify=verify)
         if vmeta["kind"] == "fp32_ondisk":
-            raise NotImplementedError(NOT_PORTED["on_disk"])
-        if vmeta["kind"] != "fp32":
+            row_store = PagedVectorStore(d / "rows.f32", dim=config.dim)
+        elif vmeta["kind"] != "fp32":
             raise NotImplementedError(NOT_PORTED["nvq"])
-        vectors = _dev(varr["vectors"], 0)
+        else:
+            vectors = _dev(varr["vectors"], 0)
 
     pqv = None
     ppath = d / "pq.jvtpu"
@@ -190,11 +215,15 @@ def read_segment(path: str | Path, device: torch.device | str,
             codes=_dev(parr["codes"], 0),
         )
     return Segment(name=d.name, config=config, graph=graph, docmap=docmap,
-                   vectors=vectors, pqv=pqv)
+                   vectors=vectors, pqv=pqv, row_store=row_store)
 
 
 def check_integrity(path: str | Path) -> bool:
-    """Re-verify every container checksum (checkIntegrity parity)."""
-    for f in sorted(Path(path).glob("*.jvtpu")):
+    """Re-verify every container checksum and every raw row file against
+    its CRC sidecar (checkIntegrity parity)."""
+    d = Path(path)
+    for f in sorted(d.glob("*.jvtpu")):
         store.read_container(f, verify=True)
+    for f in sorted(d.glob("*.f32")):
+        verify_row_file(f)
     return True

@@ -1,15 +1,23 @@
 """Index writer: buffer -> quantize -> graph build -> segment flush.
 
-Port of the `in_memory` flush of `opensearch_jvector_tpu/index/writer.py`:
+Port of the flush of `opensearch_jvector_tpu/index/writer.py`:
   * buffers (docId, float vector) blocks; byte vectors are rejected
   * below `min_batch_size_for_quantization` builds fp32 only; otherwise
     trains PQ and encodes (`_quantize_for_flush`), then builds the Vamana
-    graph over the fp32 rows (which stay resident for the rerank)
+    graph over the fp32 rows
+  * `index_type: flat` builds no graph and keeps the corpus on the host:
+    PQ trains on a host sample and the encode streams host chunks
+  * in_memory segments keep their fp32 rows on the device for the rerank;
+    on_disk PQ segments write them to the raw row file (`rows.f32`), and a
+    vamana on_disk flush scores its build's beam candidates from the
+    decoded-PQ cache (prunes stay exact fp32)
   * writes the segment with versioned, checksummed containers
 
-Quantized construction, on_disk mode, NVQ, scalar quantization, the
-hierarchy layer and `flush(device_rows=...)` are not ported yet and raise
-NotImplementedError naming their ROADMAP item.
+Pure quantized construction (on_disk graph flushes of capacity >=
+`quantized_build_min_capacity`), NVQ, scalar quantization and the
+hierarchy layer are not ported yet and raise NotImplementedError naming
+their ROADMAP item. The reference's device-resident row provider
+(`flush(device_rows=...)`) is not ported either.
 """
 
 from __future__ import annotations
@@ -43,9 +51,6 @@ from opensearch_jvector_tpu_torch.utils.profiling import phase
 
 def check_config_ported(cfg: DiskAnnConfig) -> None:
     """Raise NotImplementedError for configurations the port lacks."""
-    if cfg.mode != "in_memory":
-        raise NotImplementedError(
-            "on_disk mode is not ported yet (ROADMAP queue 1 item 10)")
     if cfg.quantization_type not in (QUANT_NONE, QUANT_PQ):
         raise NotImplementedError(
             f"{cfg.quantization_type} quantization is not ported yet "
@@ -67,6 +72,10 @@ class IndexWriter:
         stats: StatsRegistry = STATS,
     ):
         check_config_ported(config)
+        # on_disk PQ graph flushes at or above this pow2 capacity take the
+        # reference's pure quantized construction (no fp32 rows on the
+        # device), which is not ported
+        self.quantized_build_min_capacity = 1 << 22
         self.root = Path(root)
         self.config = config
         self.device = torch.device(device)
@@ -118,8 +127,9 @@ class IndexWriter:
             self._buffered += ids.shape[0]
         return ids.shape[0]
 
-    def _quantize_for_flush(self, vectors: torch.Tensor):
-        """Train PQ and encode when n >= min batch; else None."""
+    def _quantize_for_flush(self, vectors: torch.Tensor | np.ndarray):
+        """Train PQ and encode when n >= min batch; else None. A numpy
+        corpus trains on a host sample and streams its encode."""
         cfg = self.config
         n = vectors.shape[0]
         if cfg.quantization_type == QUANT_NONE:
@@ -128,7 +138,8 @@ class IndexWriter:
             return None
         t0 = time.monotonic()
         pq = pq_mod.train_pq(vectors, cfg.similarity,
-                             num_subspaces=cfg.num_pq_subspaces)
+                             num_subspaces=cfg.num_pq_subspaces,
+                             device=self.device)
         codes = pq_mod.encode(pq, vectors, cfg.similarity)
         self.stats.increment(Counter.KNN_QUANTIZATION_TRAINING_TIME,
                              int((time.monotonic() - t0) * 1000))
@@ -161,11 +172,13 @@ class IndexWriter:
             counter = self._flush_counter
             self._flush_counter += 1
         flat = cfg.index_type == "flat"
+        on_disk = cfg.mode == "on_disk"
         BREAKER.check(
             BREAKER.estimate_segment_bytes(
                 count, cfg.dim, 0 if flat else cfg.m, cfg.neighbor_overflow,
                 cfg.num_pq_subspaces
-                if cfg.quantization_type != QUANT_NONE else None),
+                if cfg.quantization_type != QUANT_NONE else None,
+                keep_fp32=not (flat and on_disk)),
             self.device,
         )
         vectors_np = (blocks[0][2] if len(blocks) == 1
@@ -181,13 +194,25 @@ class IndexWriter:
             vectors_np = vectors_np[keep]
         n = int(doc_ids.size)
         name = name or f"seg_{counter:06d}_{n}"
-        vectors = torch.from_numpy(
-            np.ascontiguousarray(vectors_np)).to(self.device)
+        cap = bucket_capacity(n)
+        if (on_disk and not flat and cfg.quantization_type == QUANT_PQ
+                and n >= cfg.min_batch_size_for_quantization
+                and cap >= self.quantized_build_min_capacity):
+            raise NotImplementedError(
+                f"an on_disk graph flush of capacity {cap} (>= "
+                f"{self.quantized_build_min_capacity}) takes the quantized "
+                "build, which is not ported yet (ROADMAP queue 1 item 10; "
+                "the reference's quantized build writes a dead-entry graph "
+                "for non-pow2 flushes, ROADMAP queue 3)")
+        # flat segments keep the corpus on the host (train on a host
+        # sample, streamed encode); graph builds need the rows on the device
+        vectors = np.ascontiguousarray(vectors_np, np.float32)
+        if not flat:
+            vectors = torch.from_numpy(vectors).to(self.device)
 
         pqv = self._quantize_for_flush(vectors)
 
         t0 = time.monotonic()
-        cap = bucket_capacity(n)
         if flat:
             graph = VamanaGraph.flat(cap, n, self.device)
         else:
@@ -196,7 +221,12 @@ class IndexWriter:
                 beam_width=cfg.ef_construction, alpha=cfg.alpha,
                 neighbor_overflow=cfg.neighbor_overflow,
             )
-            graph = builder.build(vectors, cfg.similarity, capacity=cap)
+            build_pq = None
+            if on_disk and pqv is not None:
+                build_pq = {"decoded": pqv.decode_bf16()}
+            graph = builder.build(vectors, cfg.similarity, capacity=cap,
+                                  pq=build_pq)
+            del build_pq
         self.stats.increment(Counter.KNN_GRAPH_BUILD_TIME,
                              int((time.monotonic() - t0) * 1000))
 
@@ -208,8 +238,15 @@ class IndexWriter:
         cap = graph.capacity
         if pqv is not None:
             pqv = pq_mod.PQVectors(pq=pqv.pq, codes=pad_rows(pqv.codes, cap))
+        if flat and not (on_disk and pqv is not None):
+            # in-memory flat rows serve the scan and its rerank on device
+            vectors = torch.from_numpy(vectors).to(self.device)
+        # on_disk rows (host or device) go to the row file, sliced to the
+        # used prefix: no padding needed
         seg = Segment(name=name, config=cfg, graph=graph, docmap=docmap,
-                      vectors=pad_rows(vectors, cap), pqv=pqv)
+                      vectors=(vectors if on_disk and pqv is not None
+                               else pad_rows(vectors, cap)),
+                      pqv=pqv)
         path = write_segment(self.root, seg)
         self.stats.increment(Counter.KNN_FLUSH_COUNT)
         return path

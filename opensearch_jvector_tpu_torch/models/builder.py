@@ -14,7 +14,10 @@ links every live node that the entry cannot reach.
 The adjacency lives on the build device and is updated in place; the host
 keeps only the degree mirror and the small edge lists. There is no batch
 padding: the reference pads rounds to power-of-two widths only to bound
-XLA compiles. Quantized construction, deletes/merges (`add_nodes`,
+XLA compiles. `build(..., pq={"decoded": cache})` scores the insert
+rounds' beam candidates from a bf16 decoded-PQ cache (the on_disk flush's
+build source) while every prune stays on the fp32 rows. Pure quantized
+construction (no fp32 rows on the device), deletes/merges (`add_nodes`,
 `mark_deleted`, `refine_graph`) and the hierarchy layer wait (ROADMAP
 queue 1 items 8-10).
 """
@@ -211,8 +214,9 @@ class GraphIndexBuilder:
     # -- scoring helpers ---------------------------------------------------
 
     def _search_candidates(self, adj, live_dev, entry, vectors, queries,
-                           simf):
-        """Beam-search candidate pools (ids [B, R], scores [B, R])."""
+                           simf, pq=None):
+        """Beam-search candidate pools (ids [B, R], scores [B, R]); with
+        `pq` the candidates score from its decoded cache."""
         r = self.beam_width
         e = CONSTRUCTION_EXPANSIONS
         params = searcher_mod.SearchParams(
@@ -221,9 +225,11 @@ class GraphIndexBuilder:
             # eviction-driven re-expansions
             max_iters=-(-r // e) + 8,
         )
+        source = (dict(vectors=vectors) if pq is None
+                  else dict(pq_decoded=pq["decoded"]))
         res = searcher_mod.search(
-            adj, live_dev, entry, queries, params, simf, vectors=vectors,
-            has_tombstones=self._has_tombstones,
+            adj, live_dev, entry, queries, params, simf,
+            has_tombstones=self._has_tombstones, **source,
         )
         return res.ids, res.scores
 
@@ -300,7 +306,7 @@ class GraphIndexBuilder:
     # -- insert round --------------------------------------------------------
 
     def _round_dispatch(self, st: _DeviceAdj, live_dev, entry, batch,
-                        vectors, simf):
+                        vectors, simf, pq=None):
         """Device half of an insert round: beam search, intra-round
         candidates, prune, forward rows + live mark. Returns the pending
         state for `_round_finish`."""
@@ -308,7 +314,7 @@ class GraphIndexBuilder:
         batch_t = torch.as_tensor(batch, device=dev)
         queries = vectors[batch_t]
         cand_ids, cand_scores = self._search_candidates(
-            st.adj, live_dev, entry, vectors, queries, simf)
+            st.adj, live_dev, entry, vectors, queries, simf, pq)
         b = batch.size
         top_r = min(b - 1, self.max_degree) if b > 1 else 0
         if top_r > 0:
@@ -344,11 +350,14 @@ class GraphIndexBuilder:
         vectors: torch.Tensor,  # [N, d] on the build device
         simf: SimilarityFunction,
         capacity: int | None = None,
+        pq: dict | None = None,  # {"decoded": [N, d] bf16}: beam source
     ) -> VamanaGraph:
         """Fresh Vamana build over `vectors` (insertion in shuffled rounds).
 
         `capacity` (>= n) is rounded up to a power of two, the segment
-        format's ordinal space."""
+        format's ordinal space. With `pq`, the insert rounds' beam
+        candidates score from `pq["decoded"]`; prunes, bootstrap and
+        cleanup score the fp32 rows."""
         n = int(vectors.shape[0])
         dev = vectors.device
         cap_deg = self.overflow_degree
@@ -356,6 +365,8 @@ class GraphIndexBuilder:
             return VamanaGraph.empty(capacity or 0, cap_deg, dev)
         capacity = bucket_capacity(max(capacity or 0, n))
         vectors = pad_rows(vectors.float(), capacity)
+        if pq is not None:
+            pq = {"decoded": pad_rows(pq["decoded"], capacity)}
 
         st = _DeviceAdj(
             torch.full((capacity, cap_deg), -1, dtype=torch.int32,
@@ -394,7 +405,7 @@ class GraphIndexBuilder:
             cur = min(self.batch_size, max(pos, 64))
             batch = order[pos: pos + cur]
             nxt = self._round_dispatch(st, live_dev, entry, batch, vectors,
-                                       simf)
+                                       simf, pq)
             live[batch] = True
             if pending is not None:
                 self._round_finish(st, pending, vectors, simf)

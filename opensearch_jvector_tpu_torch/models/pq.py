@@ -4,6 +4,8 @@ Port of `opensearch_jvector_tpu/models/pq.py` for plain (isotropic) PQ:
   * k-means++ per subspace, <=256 clusters => 1 byte/code
   * global-mean centering for EUCLIDEAN, normalized training for COSINE
   * the reference's dimension-adaptive default subspace count
+  * host-resident corpora (numpy) train on a host sample and encode in
+    streamed chunks, so the corpus never has to fit on the device
 Anisotropic codebooks and `refine_pq` wait (ROADMAP queue 1 items 8-9).
 """
 
@@ -70,31 +72,47 @@ TRAIN_ITERS = 8  # Lloyd iterations after k-means++ seeding
 TRAIN_SEED = 0
 
 
+def _train_sample(n: int, max_train: int) -> np.ndarray:
+    """The sorted row sample training reads (the reference's draw)."""
+    return np.sort(np.random.default_rng(TRAIN_SEED).choice(
+        n, max_train, replace=False))
+
+
 def train_pq(
-    vectors: torch.Tensor,  # [n, d] float32 on the training device
+    vectors: torch.Tensor | np.ndarray,  # [n, d] float32
     simf: SimilarityFunction,
     num_subspaces: int | None = None,
     max_train: int = 131072,
+    device: torch.device | str | None = None,  # for a numpy corpus
 ) -> ProductQuantization:
     """Train PQ codebooks (k-means++ + Lloyd per subspace), K = min(256, n).
 
-    The center is the mean of ALL rows; training samples `max_train` rows
-    with `np.random.default_rng(TRAIN_SEED)`, as the reference does."""
+    Training samples `max_train` rows with
+    `np.random.default_rng(TRAIN_SEED)`, as the reference does. For a
+    tensor the center is the mean of ALL rows. A numpy (host-resident)
+    corpus is sampled on the host BEFORE centering and only the sample is
+    uploaded to `device`, so its center is the sample mean — the
+    reference's rule for host corpora (flat ingest)."""
     n, d = vectors.shape
     m = num_subspaces or default_num_subspaces(d)
     if d % m != 0:
         raise ValueError(f"num_subspaces {m} must divide dim {d}")
     k = min(256, n)
+    if isinstance(vectors, np.ndarray):
+        if n > max_train:
+            vectors = vectors[_train_sample(n, max_train)]
+        vectors = torch.from_numpy(
+            np.ascontiguousarray(vectors, np.float32)).to(device)
     x, center = _preprocess(vectors.float(), simf)
-    if n > max_train:
-        sel = np.sort(np.random.default_rng(TRAIN_SEED).choice(
-            n, max_train, replace=False))
-        x = x[torch.as_tensor(sel, device=x.device)]
+    if x.shape[0] > max_train:
+        x = x[torch.as_tensor(_train_sample(n, max_train), device=x.device)]
     x_sub = x.reshape(-1, m, d // m).transpose(0, 1).contiguous()
     gen = torch.Generator(device=vectors.device).manual_seed(TRAIN_SEED)
     codebooks = train_kmeans_subspaces(x_sub, k, TRAIN_ITERS, gen)
     return ProductQuantization(codebooks=codebooks, center=center)
 
+
+DECODE_ROWS = 1 << 18  # rows per decode step
 
 # Rows per encode step: bounds the [M, rows, K] distance slab (~512 MiB at
 # M=64, K=256). The codes do not depend on it.
@@ -120,9 +138,24 @@ def encode_pq(pq: ProductQuantization, vectors: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def encode(pq: ProductQuantization, vectors: torch.Tensor,
+# Rows of a host (numpy) corpus uploaded per encode step.
+HOST_ENCODE_ROWS = 1 << 16
+
+
+def encode(pq: ProductQuantization, vectors: torch.Tensor | np.ndarray,
            simf: SimilarityFunction) -> torch.Tensor:
-    """Encode a corpus; cosine corpora are encoded normalized."""
+    """Encode a corpus on the codebooks' device; cosine corpora are encoded
+    normalized. A numpy corpus is streamed to the device in chunks of
+    HOST_ENCODE_ROWS rows."""
+    if isinstance(vectors, np.ndarray):
+        dev = pq.codebooks.device
+        out = torch.empty((vectors.shape[0], pq.codebooks.shape[0]),
+                          dtype=torch.uint8, device=dev)
+        for s in range(0, vectors.shape[0], HOST_ENCODE_ROWS):
+            chunk = torch.from_numpy(np.ascontiguousarray(
+                vectors[s: s + HOST_ENCODE_ROWS], np.float32)).to(dev)
+            out[s: s + chunk.shape[0]] = encode(pq, chunk, simf)
+        return out
     if simf is SimilarityFunction.COSINE:
         vectors = _normalize(vectors)
     return encode_pq(pq, vectors)
@@ -136,13 +169,27 @@ class PQVectors:
     codes: torch.Tensor  # [n, M] uint8
 
     def decode(self, dtype=torch.float32) -> torch.Tensor:
-        """Approximate reconstruction [n, d] (centroid lookup + un-center)."""
+        """Approximate reconstruction [n, d] (centroid lookup + un-center).
+
+        Decoded DECODE_ROWS rows at a time: the float32 gather is 4*d
+        bytes per row, so a one-shot decode of a large segment would hold
+        several copies of the corpus."""
         m, _, dsub = self.pq.codebooks.shape
-        idx = self.codes.long()  # uint8 would index as a boolean mask
-        sub = torch.arange(m, device=idx.device)
-        gathered = self.pq.codebooks[sub, idx]  # [n, M, dsub]
-        flat = gathered.reshape(idx.shape[0], m * dsub)
-        return (flat + self.pq.center).to(dtype)
+        n = self.codes.shape[0]
+        sub = torch.arange(m, device=self.codes.device)
+        out = torch.empty((n, m * dsub), dtype=dtype,
+                          device=self.codes.device)
+        for s in range(0, n, DECODE_ROWS):
+            idx = self.codes[s: s + DECODE_ROWS].long()  # not a bool mask
+            flat = self.pq.codebooks[sub, idx].reshape(idx.shape[0], -1)
+            out[s: s + idx.shape[0]] = flat + self.pq.center
+        return out
+
+    def decode_bf16(self) -> torch.Tensor:
+        """Decoded-candidate cache [n, d] bf16: the on_disk tier's scan
+        and beam scoring source when device memory allows (2*d bytes per
+        row against 4*d for fp32 rows, which stay on the host)."""
+        return self.decode(dtype=torch.bfloat16)
 
     def build_query_luts(self, queries: torch.Tensor,
                          simf: SimilarityFunction) -> torch.Tensor:

@@ -14,12 +14,20 @@ import torch
 from opensearch_jvector_tpu_torch.api.config import DiskAnnConfig, SearchConfig
 from opensearch_jvector_tpu_torch.api.settings import GLOBAL_SETTINGS
 from opensearch_jvector_tpu_torch.index.index import VectorIndex
+from opensearch_jvector_tpu_torch.index.reader import bf16_scores
 from opensearch_jvector_tpu_torch.ops.adc import lookup_scan
 from opensearch_jvector_tpu_torch.ops.adc_kernel import (
     adc_scan,
     kernel_error_bound,
 )
 from opensearch_jvector_tpu_torch.ops.distances import SimilarityFunction
+from opensearch_jvector_tpu_torch.ops.pq_scan_kernel import (
+    decode_scan,
+    decode_scan_reference,
+)
+from opensearch_jvector_tpu_torch.ops.pq_scan_kernel import (
+    kernel_error_bound as decode_error_bound,
+)
 from opensearch_jvector_tpu_torch.utils.circuit_breaker import BREAKER
 from opensearch_jvector_tpu_torch.utils.ground_truth import (
     ground_truth_topk,
@@ -87,6 +95,60 @@ def test_adc_scan_rejects_inputs_the_kernel_does_not_take(card):
             adc_scan(lt, cd)
 
 
+# (Q, N, M, K, dsub): the on_disk cell's widths (N cut), ragged Q and N
+# with odd dsub and K < 256, Q = 1, dsub = 2 (the 128-d schedule), and
+# the JAX kernel test's Q > 128 shape
+DECODE_SHAPES = [(512, 1 << 16, 64, 256, 15), (3, 1000, 8, 64, 21),
+                 (1, 777, 64, 256, 2), (7, 300, 64, 256, 2),
+                 (130, 1030, 12, 256, 16)]
+
+
+@pytest.mark.parametrize("shape", DECODE_SHAPES, ids=str)
+def test_decode_scan_kernel_matches_plain(shape, card):
+    q, n, m, k, dsub = shape
+    gen = torch.Generator(device=card).manual_seed(sum(shape))
+    q_c = torch.randn((q, m * dsub), generator=gen, device=card)
+    codes = torch.randint(0, k, (n, m), generator=gen, device=card,
+                          dtype=torch.uint8)
+    cb = torch.randn((m, k, dsub), generator=gen, device=card)
+    before = decode_scan.launches
+    got = decode_scan(q_c, codes, cb)
+    torch.cuda.synchronize()
+    assert decode_scan.launches == before + 1
+    err = (got - decode_scan_reference(q_c, codes, cb)).abs()
+    assert bool((err <= decode_error_bound(q_c, codes, cb)).all())
+
+
+def test_decode_scan_code_slices_are_independent(card):
+    gen = torch.Generator(device=card).manual_seed(2)
+    q_c = torch.randn((9, 960), generator=gen, device=card)
+    codes = torch.randint(0, 256, (5000, 64), generator=gen, device=card,
+                          dtype=torch.uint8)
+    cb = torch.randn((64, 256, 15), generator=gen, device=card)
+    full = decode_scan(q_c, codes, cb)
+    part = decode_scan(q_c, codes[1234:3777], cb)
+    torch.testing.assert_close(part, full[:, 1234:3777], rtol=0, atol=0)
+
+
+def test_decode_scan_rejects_inputs_the_kernel_does_not_take(card):
+    q_c = torch.randn((4, 64), device=card)
+    codes = torch.randint(0, 256, (100, 8), device=card, dtype=torch.uint8)
+    cb = torch.randn((8, 256, 8), device=card)
+    bad = [
+        (q_c.double(), codes, cb),  # float64 queries
+        (q_c, codes.int(), cb),  # int32 codes
+        (q_c, codes, cb.bfloat16()),  # bf16 codebooks
+        (q_c.t().contiguous().t(), codes, cb),  # non-contiguous queries
+        (q_c, codes.t().contiguous().t(), cb),  # non-contiguous codes
+        (q_c[:, :60].contiguous(), codes, cb),  # d != M * dsub
+        (q_c, codes, torch.randn((8, 300, 8), device=card)),  # K > 256
+        (q_c.cpu(), codes, cb),  # mixed devices never fall back
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            decode_scan(*args)
+
+
 def _latent(rng, n, d=32):
     a = rng.standard_normal((16, d)) / 4.0
     return (rng.standard_normal((n, 16)) @ a
@@ -129,7 +191,62 @@ def test_index_on_card_reaches_recall_and_matches_cpu(beam, card, corpus,
                                atol=1e-6)
 
 
+def test_bf16_scores_on_card_match_cpu(card):
+    """The decoded-cache rung's product: one bf16 matmul with a float32
+    result on the card, the upcast matmul on the CPU; both sum exact
+    products in float32, so they differ only by summation order."""
+    gen = torch.Generator().manual_seed(3)
+    qb = torch.randn((37, 960), generator=gen).bfloat16()
+    rows = torch.randn((5000, 960), generator=gen).bfloat16()
+    want = bf16_scores(qb, rows)
+    got = bf16_scores(qb.to(card), rows.to(card))
+    assert got.dtype == torch.float32 and got.shape == (37, 5000)
+    bound = 2.0 ** -12 * (qb.float().abs() @ rows.float().abs().T)
+    assert bool(((got.cpu() - want).abs() <= bound).all())
+
+
 def test_breaker_reads_device_memory(card):
     total, in_use = BREAKER.device_memory(card)
     assert total > 0 and 0 <= in_use <= total
     BREAKER.check(1 << 20, card)
+
+
+def test_on_disk_codes_only_on_card_matches_cpu(card, corpus, tmp_path,
+                                                monkeypatch):
+    """A flat on_disk index searched on the card with the decoded cache
+    refused: a 512-query batch takes decode_scan, an 8-query batch
+    adc_scan; the CPU agrees on the same directory."""
+    vectors, queries = corpus
+    big = np.concatenate([queries] * 8)  # 512 queries
+    idx = VectorIndex(tmp_path, DiskAnnConfig(
+        dim=32, num_pq_subspaces=16, mode="on_disk", index_type="flat"),
+        device=card)
+    idx.add_batch(np.arange(vectors.shape[0]), vectors)
+    idx.flush()
+    reader = idx._reader(idx.segment_names[0])
+    total = torch.cuda.mem_get_info(card)[1]
+    # budget = in use + 128 KiB: codes_sq (32 KiB) fits, the 512 KiB
+    # decoded cache does not
+    in_use = BREAKER.device_memory(card)[1]
+    monkeypatch.setattr(BREAKER, "device_memory",
+                        lambda dev: (total, in_use))
+    GLOBAL_SETTINGS.put("knn.memory.circuit_breaker.limit",
+                        100.0 * (in_use + (128 << 10)) / total)
+    try:
+        fused, lut = decode_scan.launches, adc_scan.launches
+        got = idx.search(big, SearchConfig(k=10))
+        assert decode_scan.launches == fused + 1
+        small = idx.search(queries[:8], SearchConfig(k=10))
+        assert adc_scan.launches > lut
+    finally:
+        GLOBAL_SETTINGS.put("knn.memory.circuit_breaker.limit", 50.0)
+    assert reader._pq_decoded is None
+    assert reader.seg.row_store.is_native
+    cpu = VectorIndex(tmp_path, device="cpu")
+    for res, qs in ((got, big), (small, queries[:8])):
+        want = cpu.search(qs, SearchConfig(k=10))
+        assert recall_at_k(res.doc_ids, want.doc_ids, 10) >= 0.99
+    truth = ground_truth_topk(torch.from_numpy(queries),
+                              torch.from_numpy(vectors), 10,
+                              SimilarityFunction.EUCLIDEAN)
+    assert recall_at_k(got.doc_ids[:64], truth, 10) >= 0.95

@@ -247,7 +247,6 @@ def test_bwc_v2_scalar_fixture_names_its_roadmap_item():
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(mode="on_disk"), "item 10"),
     (dict(quantization_type="nvq+pq"), "item 9"),
     (dict(quantization_type="1bit"), "item 9"),
     (dict(hierarchy_enabled=True), "item 9"),
