@@ -6,7 +6,10 @@
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. device: card name, and name + power limit as nvidia-smi reports them;
   2. build: compile the CUDA kernels and the host row store from the
-     sources in this checkout, all compilers started together;
+     sources in this checkout, all compilers started together, with
+     ptxas's register and spill report and the count of tensor-core
+     (HMMA) instructions in decode_scan_kernel's SASS where cuobjdump is
+     found;
   3. kernels: every kernel against its plain PyTorch version at the main
      paths' shapes and at ragged shapes, with the kernel's time, the plain
      version's, one library call computing the same function, and the
@@ -41,6 +44,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import gc
+import importlib.util
 import json
 import os
 import shutil
@@ -318,6 +322,41 @@ def tight_breaker_limit(settings, breaker) -> float:
     return limit
 
 
+def cuobjdump() -> str | None:
+    """The toolkit's cuobjdump, else the one Triton carries, else None."""
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    places = [Path("/usr/local/cuda/bin/cuobjdump")]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.submodule_search_locations:
+        places.append(Path(spec.submodule_search_locations[0]) / "backends"
+                      / "nvidia" / "bin" / "cuobjdump")
+    return next((str(p) for p in places if p.is_file()), None)
+
+
+def hmma_count(lib: Path) -> str:
+    """How many tensor-core (HMMA) instructions the SASS of
+    decode_scan_kernel in `lib` holds, as a line to print; never raises."""
+    tool = cuobjdump()
+    if tool is None:
+        return "cuobjdump not available"
+    try:
+        proc = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, timeout=120, check=False)
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"cuobjdump failed: {e}"
+    if proc.returncode != 0:
+        return f"cuobjdump failed (exit {proc.returncode})"
+    count, inside = 0, False
+    for line in proc.stdout.splitlines():
+        if "Function :" in line:
+            inside = "decode_scan_kernel" in line
+        elif inside and "HMMA" in line:
+            count += 1
+    return f"{count} HMMA instructions in decode_scan_kernel ({tool})"
+
+
 def kernel_counts(*kernels) -> dict:
     return {k.__name__: k.launches for k in kernels}
 
@@ -378,9 +417,12 @@ def main() -> int:
     log(f"[2/7] build: {', '.join(p.name for p in libs.values())} in "
         f"{time.monotonic() - t0:.1f} s (compilers started together)")
     for name in names:
+        if name not in _kernels.BUILD_LOGS:
+            log(f"  {name}: built before this run, no compiler report")
         for line in _kernels.BUILD_LOGS.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    log(f"  sass: {hmma_count(libs['decode_scan'])}")
 
     # ---- 3. kernels vs plain ----------------------------------------------
     log("[3/7] kernels vs plain PyTorch on the card")

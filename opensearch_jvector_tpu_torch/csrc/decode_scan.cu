@@ -17,29 +17,44 @@
 // What bounds it on an H100: operations. At the on_disk cell (Q = 512,
 // N = 2^20, d = 960) the product is 2*Q*N*d = 1.03e12 FLOP, 1.04 ms at the
 // 989 TFLOP/s bf16 tensor-core peak, while the bytes it must move (67 MB of
-// codes, 2.15 GB of scores) take 0.66 ms at 3.35 TB/s. This first version
-// runs the product on the CUDA cores (float32 FMA, 67 TFLOP/s, so no better
-// than 15.4 ms there); the tensor-core (mma / wgmma) form is later work.
+// codes, 2.15 GB of scores) take 0.66 ms at 3.35 TB/s. On the CUDA cores
+// (float32 FMA, 67 TFLOP/s) the same product could take no less than
+// 15.4 ms, so the product runs on the tensor cores.
 //
 // What the design does about it:
-//   * A block owns a 128-query x 128-row output tile; each of its 256
-//     threads keeps an 8 x 8 tile of float32 sums in registers, so every
-//     pair of shared-memory operands feeds 64 FMAs.
-//   * The dimension runs in chunks of 32. Per chunk the block stages (a)
-//     the 32 x 256 codebook slice of those dimensions, (b) its 128 queries'
-//     32 values, and (c) decodes its 128 rows' 32 values by gathering from
-//     the staged slice with the row's code byte. The decoded tile lives
-//     only in shared memory.
+//   * A block owns a 128-query x 128-row output tile, 8 warps in a 2 x 4
+//     layout; each warp owns 64 queries x 32 rows, i.e. 4 x 4 tiles of
+//     warp-level mma.sync.m16n8k16 (bf16 operands, float32 accumulators,
+//     64 sums a thread).
+//   * The dimension runs in chunks of 32 (two k16 steps). Per chunk the
+//     block holds in shared memory, all bf16: (a) the 32 x 256 codebook
+//     slice of those dimensions, (b) its queries' 32 values as a [query]
+//     [dim] tile (the mma's row-major A operand, copied straight from the
+//     prep kernel's bf16 queries), and (c) its rows' 32 values, decoded by
+//     gathering from the staged slice with the row's code byte, as a
+//     [row][dim] tile (the column-major B operand). The decoded tile lives
+//     only in shared memory. Rows of the A and B tiles are skewed by 16 B,
+//     so ldmatrix reads them without bank conflicts.
+//   * (a) and (b) are double-buffered: cp.async copies the next chunk's
+//     slices while this chunk decodes and multiplies, so the block waits
+//     on L2 only for the first chunk (two barriers a chunk).
 //   * A small prep kernel first rounds the queries to bf16 and lays the
 //     codebook out per dimension (cbt[j][c] = cb[j / dsub][c][j % dsub],
 //     256 slots, zero past K and past d), so each chunk's slice is one
 //     contiguous 16 KB copy and codes >= K read zeros: no bounds checks in
 //     the inner loops.
-//   * Operands are rounded to bf16 (the TPU kernel's numerics) and held as
-//     float32 in shared memory; a product of two bf16 values is exact in
-//     float32, so the sums are the bf16-operand, float32-accumulate product.
-//   * Ragged edges are masked (queries past Q and rows past N), no padding
-//     of the inputs.
+//   * Numerics are the TPU kernel's: bf16 operands, float32 sums. Every
+//     output element is summed over the same chunks and k16 steps in the
+//     same order wherever its row sits in a tile, so scanning a slice of
+//     the codes gives exactly the full scan's values.
+//   * Ragged edges are masked: query rows past Q and code rows past N are
+//     staged as zeros and never written; no padding of the inputs. Code
+//     bytes are read one at a time, so a slice may start at any row.
+//
+// Measured (chip_smoke.py phase 3, NVIDIA H100 80GB HBM3, 700 W power
+// limit): 6.29 ms at the cell, 17 % of the bound, against 26.84 ms for the
+// earlier float32 CUDA-core form of this kernel and 1.70 ms for a bf16
+// matmul over rows decoded beforehand; PERF.md has the numbers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,15 +65,50 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTileQ = 128;
 constexpr int kTileN = 128;
-constexpr int kChunk = 32;   // dimensions per staged chunk
+constexpr int kChunk = 32;          // dimensions per staged chunk
+constexpr int kPitch = kChunk + 8;  // bf16 per A / B tile row: 16 B skew
 constexpr int kSlots = 256;  // codebook slots per dimension (one per byte)
+constexpr int kWarpQ = 64;   // queries per warp (4 m16 tiles)
+constexpr int kWarpN = 32;   // code rows per warp (4 n8 tiles)
+// dynamic shared memory: two codebook slices, two query tiles, one
+// decoded tile (62 KB)
+constexpr int kCbBytes = kChunk * kSlots * 2;
+constexpr int kABytes = kTileQ * kPitch * 2;
+constexpr int kBBytes = kTileN * kPitch * 2;
+constexpr int kSmemBytes = 2 * kCbBytes + 2 * kABytes + kBBytes;
 
-__device__ __forceinline__ float bf16_lo(uint32_t w) {
-  return __uint_as_float(w << 16);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ float bf16_hi(uint32_t w) {
-  return __uint_as_float(w & 0xffff0000u);
+// 16 B from device memory to shared memory, asynchronously; zeros where
+// !valid (nothing is read then).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+
+// Four 8 x 8 b16 matrices from shared memory; lanes 8i..8i+7 give the row
+// addresses of matrix i, and each lane receives row lane / 4, columns
+// 2 * (lane % 4) and +1 of every matrix.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.x4.m8n8.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c[16 x 8] += a[16 x 16] (row-major) * b[16 x 8] (column-major), bf16
+// operands, float32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // qb[q][j] = bf16(q_c[q][j]) (zero for j >= d), [Q, d_pad];
@@ -99,13 +149,20 @@ decode_scan_kernel(const __nv_bfloat16* __restrict__ qb,
                    const __nv_bfloat16* __restrict__ cbt,
                    float* __restrict__ out,
                    int Q, int N, int M, int d_pad, int dsub, int vec_out) {
-  __shared__ __align__(16) float a_s[kChunk][kTileQ];
-  __shared__ __align__(16) float b_s[kChunk][kTileN];
-  __shared__ __align__(16) __nv_bfloat16 cb_s[kChunk][kSlots];
+  // raw bf16 bits throughout: cb_s[2][kChunk][kSlots],
+  // a_s[2][kTileQ][kPitch], b_s[kTileN][kPitch]
+  extern __shared__ __align__(16) uint8_t smem[];
+  auto cb_s = reinterpret_cast<uint16_t (*)[kChunk][kSlots]>(smem);
+  auto a_s =
+      reinterpret_cast<uint16_t (*)[kTileQ][kPitch]>(smem + 2 * kCbBytes);
+  auto b_s = reinterpret_cast<uint16_t (*)[kPitch]>(smem + 2 * kCbBytes +
+                                                    2 * kABytes);
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;  // output rows tx*4..+3 and 64+tx*4..+3
-  const int ty = tid >> 4;  // output queries ty*4..+3 and 64+ty*4..+3
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wq = (warp >> 2) * kWarpQ;  // the warp's first query in the tile
+  const int wn = (warp & 3) * kWarpN;   // the warp's first row in the tile
   const long long n0 = static_cast<long long>(blockIdx.x) * kTileN;
   const int q0 = blockIdx.y * kTileQ;
 
@@ -116,97 +173,127 @@ decode_scan_kernel(const __nv_bfloat16* __restrict__ qb,
   const uint8_t* code_row =
       codes + (row_ok ? n0 + dn : 0) * static_cast<long long>(M);
 
-  // query staging role: one query, 16 of each chunk's dimensions
-  const int aq = tid >> 1;
-  const int ak0 = (tid & 1) * 16;
-  const bool q_ok = q0 + aq < Q;
-  const __nv_bfloat16* q_row =
-      qb + static_cast<long long>(q_ok ? q0 + aq : 0) * d_pad;
+  // ldmatrix roles: A rows (lane & 15) at dims (lane >> 4) * 8; B matrix
+  // lane >> 3 of an x4 pair of n8 tiles: rows ((lane >> 4) * 8 +
+  // (lane & 7)) at dims ((lane >> 3) & 1) * 8
+  const int a_row = wq + (lane & 15);
+  const int a_col = (lane >> 4) * 8;
+  const uint16_t* b_frag =
+      &b_s[wn + (lane >> 4) * 8 + (lane & 7)][((lane >> 3) & 1) * 8];
 
-  float acc[8][8];
+  // the codebook slice (contiguous in cbt) and the query values (16 B
+  // per copy, zero past Q) of the chunk at k0, into buffer buf
+  auto stage = [&](int k0, int buf) {
+    const __nv_bfloat16* src = cbt + static_cast<long long>(k0) * kSlots;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < kCbBytes / 16 / kThreads; ++i) {
+      const int e = (tid + i * kThreads) * 8;
+      cp_async16(&cb_s[buf][0][0] + e, src + e, true);
+    }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    for (int i = 0; i < kTileQ * kChunk * 2 / 16 / kThreads; ++i) {
+      const int idx = tid + i * kThreads;
+      const int r = idx >> 2;
+      const int s = (idx & 3) * 8;
+      const bool ok = q0 + r < Q;
+      cp_async16(&a_s[buf][r][s],
+                 qb + static_cast<long long>(ok ? q0 + r : 0) * d_pad + k0 +
+                     s,
+                 ok);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+    }
   }
 
-  for (int k0 = 0; k0 < d_pad; k0 += kChunk) {
-    {  // the chunk's codebook slice: 16 KB, contiguous in cbt
-      const uint4* src =
-          reinterpret_cast<const uint4*>(cbt + static_cast<long long>(k0) *
-                                                   kSlots);
-      uint4* dst = reinterpret_cast<uint4*>(&cb_s[0][0]);
-#pragma unroll
-      for (int i = 0; i < kChunk * kSlots * 2 / 16 / kThreads; ++i) {
-        dst[tid + i * kThreads] = __ldg(src + tid + i * kThreads);
-      }
-    }
-    {  // the chunk's query values, transposed to a_s[dim][query]
-      uint4 w0 = make_uint4(0, 0, 0, 0);
-      uint4 w1 = make_uint4(0, 0, 0, 0);
-      if (q_ok) {
-        const uint4* src = reinterpret_cast<const uint4*>(q_row + k0 + ak0);
-        w0 = __ldg(src);
-        w1 = __ldg(src + 1);
-      }
-      const uint32_t h[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        a_s[ak0 + 2 * i][aq] = bf16_lo(h[i]);
-        a_s[ak0 + 2 * i + 1][aq] = bf16_hi(h[i]);
-      }
-    }
+  stage(0, 0);
+  int buf = 0;
+  for (int k0 = 0; k0 < d_pad; k0 += kChunk, buf ^= 1) {
+    // this chunk's slices have landed, and every warp is done with the
+    // previous chunk's b_s and its other buffer
+    asm volatile("cp.async.wait_group 0;\n" ::);
     __syncthreads();
-    {  // decode: b_s[dim][row] = staged slice at the row's code
+    if (k0 + kChunk < d_pad) stage(k0 + kChunk, buf ^ 1);
+    {  // decode: b_s[row][dim] = staged slice at the row's code
       const int j = k0 + dk0;
       int m = j / dsub;
       int t = j - m * dsub;
       int code = (row_ok && m < M) ? __ldg(code_row + m) : 0;
-#pragma unroll 4
+      uint32_t h[kChunk / 4];
+#pragma unroll
       for (int kk = 0; kk < kChunk / 2; ++kk) {
-        const int k = dk0 + kk;
-        b_s[k][dn] = row_ok ? __bfloat162float(cb_s[k][code]) : 0.0f;
+        const uint32_t v = cb_s[buf][dk0 + kk][code];
+        if (kk & 1) {
+          h[kk >> 1] |= v << 16;
+        } else {
+          h[kk >> 1] = v;
+        }
         if (++t == dsub) {
           t = 0;
           ++m;
           code = (row_ok && m < M) ? __ldg(code_row + m) : 0;
         }
       }
+      const uint4 w0 = row_ok ? make_uint4(h[0], h[1], h[2], h[3])
+                              : make_uint4(0, 0, 0, 0);
+      const uint4 w1 = row_ok ? make_uint4(h[4], h[5], h[6], h[7])
+                              : make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(&b_s[dn][dk0]) = w0;
+      *reinterpret_cast<uint4*>(&b_s[dn][dk0 + 8]) = w1;
     }
     __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < kChunk; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&a_s[k][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&a_s[k][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&b_s[k][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&b_s[k][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    const uint16_t* a_frag = &a_s[buf][a_row][a_col];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+    for (int kk = 0; kk < kChunk; kk += 16) {
+      uint32_t b[4][2];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int p = 0; p < 2; ++p) {  // n8 tiles 2p and 2p + 1
+        uint32_t r[4];
+        ldmatrix_x4(r, b_frag + p * 16 * kPitch + kk);
+        b[2 * p][0] = r[0];
+        b[2 * p][1] = r[1];
+        b[2 * p + 1][0] = r[2];
+        b[2 * p + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {  // m16 tile i
+        uint32_t a[4];
+        ldmatrix_x4(a, a_frag + i * 16 * kPitch + kk);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a, b[j][0], b[j][1]);
       }
     }
-    __syncthreads();
   }
 
+  // accumulator fragment: rows lane / 4 and + 8 of each m16 tile, columns
+  // 2 * (lane % 4) and + 1 of each n8 tile
+  const int g = lane >> 2;
+  const int c2 = (lane & 3) * 2;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int q = q0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
-    if (q >= Q) continue;
-    float* orow = out + static_cast<long long>(q) * N;
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const long long n = n0 + h * 64 + tx * 4;
-      if (vec_out && n + 3 < N) {
-        *reinterpret_cast<float4*>(orow + n) =
-            make_float4(acc[i][h * 4], acc[i][h * 4 + 1], acc[i][h * 4 + 2],
-                        acc[i][h * 4 + 3]);
-      } else {
+      const int q = q0 + wq + i * 16 + h * 8 + g;
+      if (q >= Q) continue;
+      float* orow = out + static_cast<long long>(q) * N;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (n + e < N) orow[n + e] = acc[i][h * 4 + e];
+      for (int j = 0; j < 4; ++j) {
+        const long long n = n0 + wn + j * 8 + c2;
+        const float v0 = acc[i][j][2 * h];
+        const float v1 = acc[i][j][2 * h + 1];
+        if (vec_out && n + 1 < N) {
+          *reinterpret_cast<float2*>(orow + n) = make_float2(v0, v1);
+        } else {
+          if (n < N) orow[n] = v0;
+          if (n + 1 < N) orow[n + 1] = v1;
         }
       }
     }
@@ -240,12 +327,17 @@ extern "C" int decode_scan_launch(const void* q_c, const void* codes,
       d_pad, K, dsub);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  // above 48 KB, dynamic shared memory has to be asked for
+  err = cudaFuncSetAttribute(decode_scan_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(static_cast<unsigned>((N + kTileN - 1) / kTileN),
             static_cast<unsigned>((Q + kTileQ - 1) / kTileQ));
-  decode_scan_kernel<<<grid, kThreads, 0, s>>>(
+  decode_scan_kernel<<<grid, kThreads, kSmemBytes, s>>>(
       static_cast<const __nv_bfloat16*>(qb),
       static_cast<const uint8_t*>(codes),
       static_cast<const __nv_bfloat16*>(cbt), static_cast<float*>(out), Q, N,
-      M, d_pad, dsub, N % 4 == 0 ? 1 : 0);
+      M, d_pad, dsub, N % 2 == 0 ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
 }

@@ -96,11 +96,15 @@ def test_adc_scan_rejects_inputs_the_kernel_does_not_take(card):
 
 
 # (Q, N, M, K, dsub): the on_disk cell's widths (N cut), ragged Q and N
-# with odd dsub and K < 256, Q = 1, dsub = 2 (the 128-d schedule), and
-# the JAX kernel test's Q > 128 shape
+# with odd dsub and K < 256, Q = 1, dsub = 2 (the 128-d schedule), the
+# JAX kernel test's Q > 128 shape, one query past an m16 tile and past
+# the 128-query block tile, the crossover's Q = 64 at the cell's widths,
+# and odd N with dsub = 15
 DECODE_SHAPES = [(512, 1 << 16, 64, 256, 15), (3, 1000, 8, 64, 21),
                  (1, 777, 64, 256, 2), (7, 300, 64, 256, 2),
-                 (130, 1030, 12, 256, 16)]
+                 (130, 1030, 12, 256, 16), (17, 1000, 16, 256, 4),
+                 (129, 2048, 32, 200, 7), (64, 1 << 14, 64, 256, 15),
+                 (5, 1003, 64, 256, 15)]
 
 
 @pytest.mark.parametrize("shape", DECODE_SHAPES, ids=str)
@@ -119,15 +123,22 @@ def test_decode_scan_kernel_matches_plain(shape, card):
     assert bool((err <= decode_error_bound(q_c, codes, cb)).all())
 
 
-def test_decode_scan_code_slices_are_independent(card):
+# (M, dsub, lo, hi): the cell's widths; M = 8 from an odd row, so the
+# codes pointer is only 8-byte aligned
+@pytest.mark.parametrize("case", [(64, 15, 1234, 3777), (8, 16, 1235, 3777)],
+                         ids=str)
+def test_decode_scan_code_slices_are_independent(case, card):
+    """Scanning a row slice equals slicing the full scan exactly: every
+    element is summed in the same order wherever its row sits."""
+    m, dsub, lo, hi = case
     gen = torch.Generator(device=card).manual_seed(2)
-    q_c = torch.randn((9, 960), generator=gen, device=card)
-    codes = torch.randint(0, 256, (5000, 64), generator=gen, device=card,
+    q_c = torch.randn((9, m * dsub), generator=gen, device=card)
+    codes = torch.randint(0, 256, (5000, m), generator=gen, device=card,
                           dtype=torch.uint8)
-    cb = torch.randn((64, 256, 15), generator=gen, device=card)
+    cb = torch.randn((m, 256, dsub), generator=gen, device=card)
     full = decode_scan(q_c, codes, cb)
-    part = decode_scan(q_c, codes[1234:3777], cb)
-    torch.testing.assert_close(part, full[:, 1234:3777], rtol=0, atol=0)
+    part = decode_scan(q_c, codes[lo:hi], cb)
+    torch.testing.assert_close(part, full[:, lo:hi], rtol=0, atol=0)
 
 
 def test_decode_scan_rejects_inputs_the_kernel_does_not_take(card):
