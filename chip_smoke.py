@@ -7,13 +7,15 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   1. device: card name, and name + power limit as nvidia-smi reports them;
   2. build: compile the CUDA kernels and the host row store from the
      sources in this checkout, all compilers started together, with
-     ptxas's register and spill report and the count of tensor-core
+     ptxas's registers and spills of every kernel and the count of tensor-core
      (HMMA) instructions in decode_scan_kernel's SASS where cuobjdump is
      found;
   3. kernels: every kernel against its plain PyTorch version at the main
      paths' shapes and at ragged shapes, with the kernel's time, the plain
      version's, one library call computing the same function, and the
-     bound the card's peak rates set;
+     bound the card's peak rates set; adc_scan also in its fused mode (score
+     map and validity mask in the epilogue) at the in_memory cell, held to
+     the plain version and, exactly, to the raw kernel mapped and masked;
   4. in_memory path: VectorIndex(DiskAnnConfig(dim=128)) on "cuda",
      add_batch + flush of --n rows in 4 flushes (4 segments that each take
      the scan tier), batched search at k=10, recall@10 against exact
@@ -140,13 +142,22 @@ def bound_of(nbytes: float, ops: float, peak_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_adc_scan(q, m, k, n, seed, reps, plain_reps, library=False):
-    """adc_scan vs lookup_scan on the card -> record dict."""
-    from opensearch_jvector_tpu_torch.ops.adc import lookup_scan
+def check_adc_scan(q, m, k, n, seed, reps, plain_reps, library=False,
+                   fused=False):
+    """adc_scan vs lookup_scan on the card -> record dict. With `fused`,
+    also the fused mode (the in_memory path's euclidean map and a validity
+    mask in the epilogue): against adc_scan_reference within the raw
+    bound, and exactly equal to the raw kernel mapped and masked."""
+    from opensearch_jvector_tpu_torch.ops.adc import (
+        adc_value_to_score,
+        lookup_scan,
+    )
     from opensearch_jvector_tpu_torch.ops.adc_kernel import (
         adc_scan,
+        adc_scan_reference,
         kernel_error_bound,
     )
+    from opensearch_jvector_tpu_torch.ops.distances import SimilarityFunction
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     # squared-distance-like tables (non-negative), byte codes below K
@@ -167,11 +178,40 @@ def check_adc_scan(q, m, k, n, seed, reps, plain_reps, library=False):
     if bad or not torch.isfinite(out).all():
         raise AssertionError(f"adc_scan disagrees with lookup_scan at "
                              f"Q={q} M={m} K={k} N={n}")
-    del out, ref, err, bound
+    del ref, err
+    nbytes, ops = n * m + q * m * k * 4 + q * n * 4, q * n * m
+    if fused:
+        simf = SimilarityFunction.EUCLIDEAN
+        valid = torch.rand((n,), generator=gen, device="cuda") < 0.95
+        got = adc_scan(luts, codes, simf, valid)
+        want = adc_value_to_score(out, simf).masked_fill_(~valid[None, :],
+                                                          float("-inf"))
+        exact = torch.equal(got, want)
+        del want
+        ref = adc_scan_reference(luts, codes, simf, valid)
+        torch.cuda.synchronize()
+        # the map is 1-Lipschitz for sums >= 0; masked rows are -inf in both
+        err = torch.where(valid[None, :], got - ref, 0.0).abs_()
+        fbad = int((err > bound).sum())
+        masked_ok = bool(torch.isneginf(got[:, ~valid]).all())
+        log(f"  adc_scan fused (euclidean map, {int((~valid).sum())} masked "
+            f"rows): max_abs_err={float(err.max()):.3e} against "
+            f"adc_scan_reference, out of bound: {fbad}; equal to the raw "
+            f"kernel mapped and masked (atol 0): {exact}; masked rows -inf: "
+            f"{masked_ok}")
+        if fbad or not exact or not masked_ok:
+            raise AssertionError(f"adc_scan's fused mode is wrong at Q={q} "
+                                 f"M={m} K={k} N={n}")
+        del got, ref, err
+        fused_ms = cuda_ms(lambda: adc_scan(luts, codes, simf, valid), reps)
+        # the fused mode also reads the N validity bytes and maps each of
+        # the Q*N sums
+        fused_bound_ms, fused_bound_by = bound_of(nbytes + n, ops + q * n,
+                                                  PEAK_F32_S)
+    del out, bound
     ms = cuda_ms(lambda: adc_scan(luts, codes), reps)
     plain_ms = cuda_ms(lambda: lookup_scan(luts, codes), plain_reps)
-    bound_ms, bound_by = bound_of(n * m + q * m * k * 4 + q * n * 4,
-                                  q * n * m, PEAK_F32_S)
+    bound_ms, bound_by = bound_of(nbytes, ops, PEAK_F32_S)
     library_ms = None
     if library:
         # one library call for the same function: a summing embedding bag
@@ -186,11 +226,16 @@ def check_adc_scan(q, m, k, n, seed, reps, plain_reps, library=False):
         del lib_out
         library_ms = cuda_ms(lambda: torch.nn.functional.embedding_bag(
             idx, table, mode="sum"), reps)
-    log(f"  adc_scan {ms:.4f} ms, plain lookup_scan {plain_ms:.4f} ms, "
-        f"library embedding_bag {library_ms} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by})")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    log(f"  adc_scan {ms:.4f} ms (bound {bound_ms:.4f} ms, {bound_by})"
+        + (f", fused mode {fused_ms:.4f} ms (bound {fused_bound_ms:.4f} ms, "
+           f"{fused_bound_by})" if fused else "")
+        + f", plain lookup_scan {plain_ms:.4f} ms, library embedding_bag "
+        f"{library_ms} ms")
+    rec = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    if fused:
+        rec.update(fused_ms=fused_ms, fused_bound_ms=fused_bound_ms)
+    return rec
 
 
 def check_decode_scan(q, n, m, k, dsub, seed, reps, plain_reps,
@@ -419,16 +464,15 @@ def main() -> int:
     for name in names:
         if name not in _kernels.BUILD_LOGS:
             log(f"  {name}: built before this run, no compiler report")
-        for line in _kernels.BUILD_LOGS.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        for line in _kernels.ptxas_summary(_kernels.BUILD_LOGS.get(name, "")):
+            log(f"  ptxas {name}: {line}")
     log(f"  sass: {hmma_count(libs['decode_scan'])}")
 
     # ---- 3. kernels vs plain ----------------------------------------------
     log("[3/7] kernels vs plain PyTorch on the card")
     m = default_num_subspaces(DIM)  # the subspaces the flushes train
     adc_rec = check_adc_scan(BATCH, m, 256, 1 << 18, args.seed, reps=20,
-                             plain_reps=3, library=True)
+                             plain_reps=3, library=True, fused=True)
     check_adc_scan(3, 8, 64, 1000, args.seed + 1, reps=20, plain_reps=20)
     # the on_disk phases' shapes: the Q=1 codes_sq table over phase 6's
     # 2^20 codes and phase 7's 2^18, and the LUT rung's batch in phase 6

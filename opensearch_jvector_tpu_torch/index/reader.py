@@ -3,7 +3,8 @@
 Port of `opensearch_jvector_tpu/index/reader.py`:
   * in_memory scan tier (`_scan_search`) for PQ segments of at most
     `scan_tier_max_codes` codes, and for flat segments: per-query LUTs,
-    the fused ADC scan kernel (ops/adc_kernel.py), exact top-r, then a
+    the fused ADC scan kernel (ops/adc_kernel.py, which also maps the sums
+    to scores and masks invalid rows), exact top-r, then a
     gather and an exact fp32 rerank on the device; flat unquantized
     segments score exact fp32 rows instead of codes;
   * in_memory beam tier for larger graph segments: beam search with the
@@ -42,7 +43,6 @@ from opensearch_jvector_tpu_torch.index.segment import Segment
 from opensearch_jvector_tpu_torch.models import searcher as searcher_mod
 from opensearch_jvector_tpu_torch.models.graph import bucket_capacity
 from opensearch_jvector_tpu_torch.models.searcher import SearchParams
-from opensearch_jvector_tpu_torch.ops import adc as adc_ops
 from opensearch_jvector_tpu_torch.ops.adc_kernel import adc_scan
 from opensearch_jvector_tpu_torch.ops.distances import (
     SimilarityFunction,
@@ -359,9 +359,8 @@ class SegmentReader:
                 luts = seg.pqv.build_query_luts(queries, simf)
 
                 def block_scores(lo, hi):
-                    vals = adc_scan(luts, seg.pqv.codes[lo:hi])
-                    s = adc_ops.adc_value_to_score(vals, simf)
-                    return s.masked_fill_(~valid[lo:hi][None, :], NEG_INF)
+                    return adc_scan(luts, seg.pqv.codes[lo:hi], simf,
+                                    valid[lo:hi])
             else:
                 def block_scores(lo, hi):
                     s = pairwise_scores(queries, seg.vectors[lo:hi], simf)
@@ -428,8 +427,8 @@ class SegmentReader:
                 codes_sq = None  # not even 4 bytes per row: the LUT rung
         if codes_sq is None:
             luts = seg.pqv.build_query_luts(queries, simf)
-            return lambda lo, hi: masked(adc_ops.adc_value_to_score(
-                adc_scan(luts, codes[lo:hi]), simf), lo, hi)
+            return lambda lo, hi: adc_scan(luts, codes[lo:hi], simf,
+                                           valid[lo:hi])
         q_c = queries - pq.center
         if simf is SimilarityFunction.COSINE:
             q_c = q_c * torch.rsqrt(torch.sum(q_c * q_c, -1, keepdim=True)

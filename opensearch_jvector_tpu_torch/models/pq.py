@@ -204,7 +204,7 @@ class PQVectors:
 
     def score_scan(self, queries: torch.Tensor, simf: SimilarityFunction,
                    lo: int = 0, hi: int | None = None) -> torch.Tensor:
-        """Full-scan ADC scores [Q, hi-lo] through the fused ADC scan."""
+        """Full-scan ADC scores [Q, hi-lo] through the fused ADC scan, the
+        score map in its epilogue."""
         luts = self.build_query_luts(queries, simf)
-        vals = adc_scan(luts, self.codes[lo:hi])
-        return adc_ops.adc_value_to_score(vals, simf)
+        return adc_scan(luts, self.codes[lo:hi], simf)

@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -97,3 +98,33 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _LIBS[name] = lib
         return lib
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One line per kernel of an `nvcc -Xptxas -v` report: the kernel's
+    name (demangled where `c++filt` is found), its registers and its spill
+    bytes."""
+    rows, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            rows.append((name, m.group(1), spill))
+            name = None
+    filt = shutil.which("c++filt")
+    names = [r[0] for r in rows]
+    if filt and names:
+        proc = subprocess.run([filt], input="\n".join(names),
+                              capture_output=True, text=True, check=False)
+        if proc.returncode == 0 and len(proc.stdout.splitlines()) == len(
+                names):
+            names = proc.stdout.splitlines()
+    out = []
+    for short, (_, regs, spill) in zip(names, rows):
+        short = short.replace("(anonymous namespace)::", "")
+        short = short.removeprefix("void ").split("(")[0]
+        out.append(f"{short}: {regs} registers; {spill}")
+    return out

@@ -15,10 +15,17 @@ from opensearch_jvector_tpu_torch.api.config import DiskAnnConfig, SearchConfig
 from opensearch_jvector_tpu_torch.api.settings import GLOBAL_SETTINGS
 from opensearch_jvector_tpu_torch.index.index import VectorIndex
 from opensearch_jvector_tpu_torch.index.reader import bf16_scores
-from opensearch_jvector_tpu_torch.ops.adc import lookup_scan
+from opensearch_jvector_tpu_torch.ops.adc import (
+    adc_value_to_score,
+    lookup_scan,
+)
 from opensearch_jvector_tpu_torch.ops.adc_kernel import (
     adc_scan,
+    adc_scan_reference,
     kernel_error_bound,
+    pick_group,
+    prep_tables,
+    prep_tables_reference,
 )
 from opensearch_jvector_tpu_torch.ops.distances import SimilarityFunction
 from opensearch_jvector_tpu_torch.ops.pq_scan_kernel import (
@@ -93,6 +100,82 @@ def test_adc_scan_rejects_inputs_the_kernel_does_not_take(card):
     for lt, cd in bad:
         with pytest.raises(ValueError):
             adc_scan(lt, cd)
+
+
+@pytest.mark.parametrize("simf", list(SimilarityFunction),
+                         ids=lambda s: s.name)
+def test_adc_scan_fused_equals_raw_mapped_and_masked(simf, card):
+    """The epilogue's score map and mask give exactly what the raw kernel
+    followed by adc_value_to_score and the mask gives; masked rows are
+    -inf. Also within the kernel's bound of the plain version."""
+    gen = torch.Generator(device=card).manual_seed(4)
+    q, m, k, n = 6, 64, 256, 5000
+    luts = 2.0 * torch.rand((q, m, k), generator=gen, device=card)
+    codes = torch.randint(0, k, (n, m), generator=gen, device=card,
+                          dtype=torch.uint8)
+    valid = torch.rand((n,), generator=gen, device=card) < 0.9
+    before = adc_scan.launches
+    fused = adc_scan(luts, codes, simf, valid)
+    raw = adc_scan(luts, codes)
+    torch.cuda.synchronize()
+    assert adc_scan.launches == before + 2
+    want = adc_value_to_score(raw, simf).masked_fill_(~valid[None, :],
+                                                      float("-inf"))
+    torch.testing.assert_close(fused, want, rtol=0, atol=0)
+    assert bool(torch.isneginf(fused[:, ~valid]).all())
+    assert bool(torch.isfinite(fused[:, valid]).all())
+    # |map(a) - map(b)| <= |a - b| for sums >= 0 (both maps)
+    plain = adc_scan_reference(luts, codes, simf, valid)
+    err = (fused - plain)[:, valid].abs()
+    assert bool((err <= kernel_error_bound(luts, codes)[:, valid]).all())
+
+
+# (M, lo, hi): the main path's M from an aligned row (16-byte vectors), and
+# M = 8 from an odd row, so the codes pointer is only 8-byte aligned (the
+# narrower load variant)
+@pytest.mark.parametrize("case", [(64, 1024, 7777), (8, 1235, 7777)],
+                         ids=str)
+def test_adc_scan_slices_are_independent_at_any_alignment(case, card):
+    """A row slice, whatever its alignment, equals the full scan's columns
+    exactly: every sum runs over m = 0 .. M-1 in order."""
+    m, lo, hi = case
+    gen = torch.Generator(device=card).manual_seed(5)
+    luts = torch.rand((9, m, 256), generator=gen, device=card)
+    codes = torch.randint(0, 256, (10_000, m), generator=gen, device=card,
+                          dtype=torch.uint8)
+    valid = torch.rand((10_000,), generator=gen, device=card) < 0.9
+    full = adc_scan(luts, codes, SimilarityFunction.EUCLIDEAN, valid)
+    part = adc_scan(luts, codes[lo:hi], SimilarityFunction.EUCLIDEAN,
+                    valid[lo:hi])
+    torch.testing.assert_close(part, full[:, lo:hi], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("q", [1, 2, 3, 5])
+def test_adc_scan_ragged_query_counts(q, card):
+    """Q = 1 and 2 take groups of 1 and 2; 3 and 5 leave slots of a group
+    of 4 empty."""
+    assert pick_group(64, q) == {1: 1, 2: 2}.get(q, 4)
+    gen = torch.Generator(device=card).manual_seed(q)
+    luts = 2.0 * torch.rand((q, 64, 256), generator=gen, device=card) - 0.5
+    codes = torch.randint(0, 256, (3001, 64), generator=gen, device=card,
+                          dtype=torch.uint8)
+    got = adc_scan(luts, codes)
+    torch.cuda.synchronize()
+    err = (got - lookup_scan(luts, codes)).abs()
+    assert bool((err <= kernel_error_bound(luts, codes)).all())
+
+
+# (Q, M, K, group): the cell's tables, ragged Q and K < 256 at each group
+@pytest.mark.parametrize("case", [(512, 64, 256, 4), (5, 8, 100, 4),
+                                  (3, 16, 256, 2), (1, 64, 77, 1)], ids=str)
+def test_adc_prep_layout_matches_plain(case, card):
+    q, m, k, group = case
+    gen = torch.Generator(device=card).manual_seed(6)
+    luts = torch.randn((q, m, k), generator=gen, device=card)
+    got = prep_tables(luts, group)
+    want = prep_tables_reference(luts, group)
+    assert got.shape == want.shape == (-(-q // group), m, 256, group)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 # (Q, N, M, K, dsub): the on_disk cell's widths (N cut), ragged Q and N

@@ -23,6 +23,7 @@ from opensearch_jvector_tpu_torch.ops.adc_kernel import (
     adc_scan,
     kernel_error_bound,
     pick_group,
+    prep_tables_reference,
 )
 
 torch.set_num_threads(2)
@@ -211,3 +212,66 @@ def test_adc_scan_refuses_mixed_devices():
     with pytest.raises(ValueError):
         adc_scan(luts, codes)
 
+
+
+@pytest.mark.parametrize("simf", SIMFS, ids=lambda s: s.name)
+def test_adc_scan_fused_score_and_mask_match_jax(simf):
+    """The fused mode (score map and validity mask in the epilogue) against
+    the reference's lookup_scan -> adc_value_to_score -> where(valid)."""
+    rng = np.random.default_rng(9)
+    q, m, k, n = 5, 8, 64, 301
+    luts = rng.random((q, m, k), dtype=np.float32)  # sums of like sign
+    codes = rng.integers(0, k, size=(n, m)).astype(np.uint8)
+    valid = rng.random(n) < 0.8
+    vals = jadc.lookup_scan(jnp.asarray(luts), jnp.asarray(codes, jnp.int32))
+    want = np.asarray(jnp.where(jnp.asarray(valid)[None, :],
+                                jadc.adc_value_to_score(vals, _jsimf(simf)),
+                                -jnp.inf))
+    before = adc_scan.launches
+    got = adc_scan(torch.from_numpy(luts), torch.from_numpy(codes), simf,
+                   torch.from_numpy(valid)).numpy()
+    assert adc_scan.launches == before  # no kernel on the CPU
+    assert got.shape == (q, n) and got.dtype == np.float32
+    assert np.isneginf(got[:, ~valid]).all()
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+def test_adc_scan_group_follows_the_queries():
+    """One query stages one table set, two queries two; three and more
+    fill a group of 4 (wide M still caps the group)."""
+    assert [pick_group(64, q) for q in (1, 2, 3, 4, 5, 512)] == [
+        1, 2, 4, 4, 4, 4]
+    assert pick_group(64, 0) == 1
+    assert [pick_group(192, q) for q in (1, 3, 9)] == [1, 2, 2]
+    assert pick_group(400, 7) == 1
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_adc_prep_reference_layout(group):
+    """The prep layout's plain version: [ceil(Q/G), M, 256, G] bf16 with
+    entry [qg, m, c, g] = bf16(luts[qg*G + g, m, c]), zero past K and Q."""
+    rng = np.random.default_rng(10)
+    q, m, k = 5, 3, 40
+    luts = torch.from_numpy(_rand(rng, q, m, k))
+    lb = prep_tables_reference(luts, group)
+    groups = -(-q // group)
+    assert lb.shape == (groups, m, 256, group) and lb.dtype == torch.bfloat16
+    assert lb.is_contiguous()
+    bf = luts.bfloat16()
+    for qi in range(groups * group):
+        got = lb[qi // group, :, :, qi % group]
+        if qi < q:
+            assert torch.equal(got[:, :k], bf[qi])
+            assert not got[:, k:].any()
+        else:
+            assert not got.any()
+
+
+def test_adc_scan_rejects_bad_validity_masks():
+    luts = torch.zeros((2, 4, 16))
+    codes = torch.zeros((10, 4), dtype=torch.uint8)
+    for valid in (torch.ones(9, dtype=torch.bool),  # wrong length
+                  torch.ones(10, dtype=torch.uint8),  # not bool
+                  torch.ones((1, 10), dtype=torch.bool)):  # not 1-D
+        with pytest.raises(ValueError):
+            adc_scan(luts, codes, valid=valid)
