@@ -34,7 +34,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      512-query batch on each rung;
   7. on_disk vamana: 500,000 x 128 rows in flushes of 300,000 (beam tier)
      and 200,000 (scan tier), searched under the default and the tight
-     breaker, and reopened.
+     breaker, and reopened;
+  8. deletes and merges. 8a (on phase 4's index directory): delete a tenth of the docs and search; add_batch + flush
+     a quarter more rows (four fifths new doc ids, one fifth updates of
+     live ones), which makes the default merge policy hand the four
+     smallest of five segments to the merge pool; search while that merge
+     runs; after it exactly 2 segments (the merged one on the beam tier,
+     the fresh one on the scan tier); then force_merge to one segment, a
+     reopen, and as a yardstick one flush of the same live rows into a
+     fresh index. The merged beam-tier segments are searched at the
+     default ef_search (reported) and at BEAM_EF (held to the target;
+     the batches served during the merge run at BEAM_EF too).
+     Every search is held to: no deleted id, every returned score
+     the exact score of the doc's newest vector (so no superseded copy),
+     recall@10 against exact ground truth over the live rows. 8b (on
+     phase 7's index directory): delete a tenth of the docs, search under both
+     breakers, force_merge to one on_disk segment whose row file holds the
+     used rows, search again under both.
 The in_memory corpus is the latent-16 "sift-like" generator of bench.py
 (make_data), the GIST-shaped one the latent-32 960-d generator of
 bench.py's gist section, both made with numpy from --seed. The last two
@@ -81,6 +97,14 @@ CROSSOVER_Q = (64, 128, 256, 512)
 # 2^18 (scan tier)
 VAMANA_FLUSHES = (300_000, 200_000)
 VAMANA_QUERIES = 2048
+# phase 8: the shares of the corpus deleted, added and (of the added)
+# updating a live doc
+DELETE_SHARE, ADD_SHARE, UPDATE_SHARE = 10, 4, 5
+# the beam tier over about a million nodes misses the recall target at the
+# default ef_search (100): the merged segments are searched at the default,
+# reported, and at this ef_search, held to the target; one flush of the
+# same live rows into a fresh index is searched the same way beside them
+BEAM_EF = 200
 ON_DISK_SPANS = ("approximate", "rerank_gather", "rerank_score")
 # H100 SXM peaks (NVIDIA data sheet, 700 W): the kernels' bounds
 PEAK_BYTES_S = 3.35e12
@@ -93,14 +117,22 @@ def log(msg: str) -> None:
 
 
 def make_data(rng, n: int, q: int, dim: int):
-    """Latent-16 corpus + queries (bench.py make_data, 'sift-like')."""
+    """Latent-16 corpus + queries (bench.py make_data, 'sift-like'), and
+    the latent basis they were drawn over."""
     latent = 16
     a = rng.standard_normal((latent, dim)).astype(np.float32) / np.sqrt(latent)
     vectors = (rng.standard_normal((n, latent)).astype(np.float32) @ a
                + 0.05 * rng.standard_normal((n, dim)).astype(np.float32))
     queries = (rng.standard_normal((q, latent)).astype(np.float32) @ a
                + 0.05 * rng.standard_normal((q, dim)).astype(np.float32))
-    return vectors.astype(np.float32), queries.astype(np.float32)
+    return vectors.astype(np.float32), queries.astype(np.float32), a
+
+
+def more_rows(rng, basis, n: int):
+    """`n` more rows of make_data's corpus over the same latent basis."""
+    return (rng.standard_normal((n, basis.shape[0])).astype(np.float32)
+            @ basis + 0.05 * rng.standard_normal(
+                (n, basis.shape[1])).astype(np.float32)).astype(np.float32)
 
 
 def make_gist(rng, n: int, q: int):
@@ -406,6 +438,44 @@ def kernel_counts(*kernels) -> dict:
     return {k.__name__: k.launches for k in kernels}
 
 
+def live_truth(queries, rows, live_ids, k):
+    """Exact top-k doc ids over the live rows `rows[live_ids]` (doc id ==
+    row), computed on the card."""
+    from opensearch_jvector_tpu_torch.ops.distances import SimilarityFunction
+    from opensearch_jvector_tpu_torch.utils.ground_truth import (
+        ground_truth_topk,
+    )
+
+    gt = ground_truth_topk(torch.as_tensor(queries, device="cuda"),
+                           torch.as_tensor(rows[live_ids], device="cuda"), k,
+                           SimilarityFunction.EUCLIDEAN)
+    return live_ids[gt]
+
+
+def check_live_answers(what, ids, scores, queries, rows_dev, dead, truth, k):
+    """Hold a search's answers to the live doc set -> recall@k: no id of
+    `dead`, every score the exact euclidean score of the doc's newest
+    vector `rows_dev[doc]` (a superseded copy would score otherwise), and
+    recall against `truth` at the target."""
+    from opensearch_jvector_tpu_torch.utils.ground_truth import recall_at_k
+
+    if np.isin(ids, dead).any():
+        raise AssertionError(f"{what}: a deleted doc id came back")
+    q = torch.as_tensor(queries, device="cuda")
+    got = torch.as_tensor(scores, device="cuda")
+    for s in range(0, ids.shape[0], BATCH):
+        rows = rows_dev[torch.as_tensor(ids[s: s + BATCH], device="cuda")]
+        d2 = torch.sum((rows - q[s: s + BATCH, None, :]) ** 2, -1)
+        if not torch.allclose(got[s: s + BATCH], 1.0 / (1.0 + d2), rtol=1e-3,
+                              atol=1e-6):
+            raise AssertionError(f"{what}: a returned score is not the "
+                                 f"score of the doc's newest vector")
+    recall = recall_at_k(ids, truth, k)
+    if recall < RECALL_TARGET:
+        raise AssertionError(f"{what}: recall@{k} {recall} < {RECALL_TARGET}")
+    return recall
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -450,7 +520,7 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    log(f"[1/7] device: {kind} (torch {torch.__version__}, "
+    log(f"[1/8] device: {kind} (torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} visible)")
     log(smi)
 
@@ -459,7 +529,7 @@ def main() -> int:
     names = ("adc_scan", "decode_scan", "vector_store")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(_kernels.build, names)))
-    log(f"[2/7] build: {', '.join(p.name for p in libs.values())} in "
+    log(f"[2/8] build: {', '.join(p.name for p in libs.values())} in "
         f"{time.monotonic() - t0:.1f} s (compilers started together)")
     for name in names:
         if name not in _kernels.BUILD_LOGS:
@@ -469,7 +539,7 @@ def main() -> int:
     log(f"  sass: {hmma_count(libs['decode_scan'])}")
 
     # ---- 3. kernels vs plain ----------------------------------------------
-    log("[3/7] kernels vs plain PyTorch on the card")
+    log("[3/8] kernels vs plain PyTorch on the card")
     m = default_num_subspaces(DIM)  # the subspaces the flushes train
     adc_rec = check_adc_scan(BATCH, m, 256, 1 << 18, args.seed, reps=20,
                              plain_reps=3, library=True, fused=True)
@@ -492,64 +562,66 @@ def main() -> int:
 
     # ---- 4. in_memory path ---------------------------------------------------
     rng = np.random.default_rng(args.seed)
-    vectors, queries = make_data(rng, args.n, args.queries, DIM)
+    vectors, queries, basis = make_data(rng, args.n, args.queries, DIM)
     sc = SearchConfig(k=K)
-    log(f"[4/7] in_memory path: {args.n} x {DIM} in {FLUSHES} flushes, "
+    log(f"[4/8] in_memory path: {args.n} x {DIM} in {FLUSHES} flushes, "
         f"{args.queries} queries in batches of {BATCH}, k={K}")
     torch.cuda.reset_peak_memory_stats()
     launches = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
-        index = VectorIndex(root, DiskAnnConfig(dim=DIM), device="cuda")
-        bounds = np.linspace(0, args.n, FLUSHES + 1).astype(int)
-        for lo, hi in zip(bounds[:-1], bounds[1:]):
-            before = index.stats.snapshot()
-            t0 = time.monotonic()
-            index.add_batch(np.arange(lo, hi), vectors[lo:hi])
-            name = index.flush()
-            torch.cuda.synchronize()
-            dt = time.monotonic() - t0
-            after = index.stats.snapshot()
-            pq_ms, build_ms = (after[c.value] - before[c.value] for c in (
-                Counter.KNN_QUANTIZATION_TRAINING_TIME,
-                Counter.KNN_GRAPH_BUILD_TIME))
-            log(f"  flush {name}: {hi - lo} vectors in {dt:.2f} s = "
-                f"{(hi - lo) / dt:.0f} vec/s (PQ train+encode {pq_ms} ms, "
-                f"graph build {build_ms} ms)")
+    # phase 8a comes back to this directory, and removes it
+    mem_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    root = mem_dir.name
+    index = VectorIndex(root, DiskAnnConfig(dim=DIM), device="cuda")
+    bounds = np.linspace(0, args.n, FLUSHES + 1).astype(int)
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        before = index.stats.snapshot()
+        t0 = time.monotonic()
+        index.add_batch(np.arange(lo, hi), vectors[lo:hi])
+        name = index.flush()
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        after = index.stats.snapshot()
+        pq_ms, build_ms = (after[c.value] - before[c.value] for c in (
+            Counter.KNN_QUANTIZATION_TRAINING_TIME,
+            Counter.KNN_GRAPH_BUILD_TIME))
+        log(f"  flush {name}: {hi - lo} vectors in {dt:.2f} s = "
+            f"{(hi - lo) / dt:.0f} vec/s (PQ train+encode {pq_ms} ms, "
+            f"graph build {build_ms} ms)")
 
-        index.search(queries[: BATCH], sc)  # warm: segment loads
-        adc_scan.launches = decode_scan.launches = 0
-        ids, scores, wall = search_all(index, queries, sc)
-        launches["in_memory"] = kernel_counts(adc_scan, decode_scan)
-        peak = torch.cuda.max_memory_allocated()
-        gt = ground_truth_topk(
-            torch.as_tensor(queries, device="cuda"),
-            torch.as_tensor(vectors, device="cuda"),
-            K, SimilarityFunction.EUCLIDEAN)
-        recall = recall_at_k(ids, gt, K)
-        log(f"  search: {1000 * wall / args.queries:.5f} ms/query batched "
-            f"({wall:.3f} s for {args.queries})")
-        log(f"  recall@{K} = {recall:.4f} (target {RECALL_TARGET})")
-        log(f"  peak device memory (max_memory_allocated): {peak} B "
-            f"= {peak / 2**30:.2f} GiB")
-        log(f"  launches on this path: {launches['in_memory']}")
-        profile_batch(index, queries[: BATCH], sc, "adc_scan_kernel")
-        if recall < RECALL_TARGET:
-            raise AssertionError(f"recall@{K} {recall} < {RECALL_TARGET}")
-        if launches["in_memory"]["adc_scan"] <= 0:
-            raise AssertionError("the search path never launched adc_scan")
+    index.search(queries[: BATCH], sc)  # warm: segment loads
+    adc_scan.launches = decode_scan.launches = 0
+    ids, scores, wall = search_all(index, queries, sc)
+    launches["in_memory"] = kernel_counts(adc_scan, decode_scan)
+    peak = torch.cuda.max_memory_allocated()
+    gt = ground_truth_topk(
+        torch.as_tensor(queries, device="cuda"),
+        torch.as_tensor(vectors, device="cuda"),
+        K, SimilarityFunction.EUCLIDEAN)
+    recall = recall_at_k(ids, gt, K)
+    log(f"  search: {1000 * wall / args.queries:.5f} ms/query batched "
+        f"({wall:.3f} s for {args.queries})")
+    log(f"  recall@{K} = {recall:.4f} (target {RECALL_TARGET})")
+    log(f"  peak device memory (max_memory_allocated): {peak} B "
+        f"= {peak / 2**30:.2f} GiB")
+    log(f"  launches on this path: {launches['in_memory']}")
+    profile_batch(index, queries[: BATCH], sc, "adc_scan_kernel")
+    if recall < RECALL_TARGET:
+        raise AssertionError(f"recall@{K} {recall} < {RECALL_TARGET}")
+    if launches["in_memory"]["adc_scan"] <= 0:
+        raise AssertionError("the search path never launched adc_scan")
 
-        # ---- 5. reopen -------------------------------------------------------
-        index.close()
-        reopened = VectorIndex(root, device="cuda")
-        again = reopened.search(queries[: BATCH], sc).doc_ids
-        same = bool((again == ids[: BATCH]).all())
-        log(f"[5/7] reopen from commits.json: {len(reopened.segment_names)} "
-            f"segments, identical top-{K} ids for {BATCH} "
-            f"queries: {same}")
-        if not same:
-            raise AssertionError("reopened index returned other ids")
-        reopened.close()
-    del vectors, queries, index, reopened
+    # ---- 5. reopen -------------------------------------------------------
+    index.close()
+    reopened = VectorIndex(root, device="cuda")
+    again = reopened.search(queries[: BATCH], sc).doc_ids
+    same = bool((again == ids[: BATCH]).all())
+    log(f"[5/8] reopen from commits.json: {len(reopened.segment_names)} "
+        f"segments, identical top-{K} ids for {BATCH} "
+        f"queries: {same}")
+    if not same:
+        raise AssertionError("reopened index returned other ids")
+    reopened.close()
+    del index, reopened
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -564,7 +636,7 @@ def main() -> int:
         grng = np.random.default_rng(args.seed + 41)
         t0 = time.monotonic()
         gv, gq = make_gist(grng, GIST_N, args.queries)
-        log(f"[6/7] on_disk flat GIST1M-shaped: {GIST_N} x {GIST_DIM}, "
+        log(f"[6/8] on_disk flat GIST1M-shaped: {GIST_N} x {GIST_DIM}, "
             f"PQ{GIST_M}, {args.queries} queries in batches of {BATCH}, "
             f"k={K} (data made in {time.monotonic() - t0:.1f} s)")
         gt = ground_truth_topk(torch.as_tensor(gq, device="cuda"),
@@ -696,74 +768,335 @@ def main() -> int:
     # ---- 7. on_disk vamana ----------------------------------------------------
     vrng = np.random.default_rng(args.seed + 7)
     n_v = sum(VAMANA_FLUSHES)
-    vv, vq = make_data(vrng, n_v, VAMANA_QUERIES, DIM)
-    log(f"[7/7] on_disk vamana: {n_v} x {DIM} in flushes of "
+    vv, vq, _ = make_data(vrng, n_v, VAMANA_QUERIES, DIM)
+    log(f"[7/8] on_disk vamana: {n_v} x {DIM} in flushes of "
         f"{VAMANA_FLUSHES}, {VAMANA_QUERIES} queries, k={K}")
     gt = ground_truth_topk(torch.as_tensor(vq, device="cuda"),
                            torch.as_tensor(vv, device="cuda"), K,
                            SimilarityFunction.EUCLIDEAN)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_vamana_") as root:
-        index = VectorIndex(root, DiskAnnConfig(dim=DIM, mode="on_disk"),
-                            device="cuda")
-        lo = 0
-        for count in VAMANA_FLUSHES:
-            t0 = time.monotonic()
-            index.add_batch(np.arange(lo, lo + count), vv[lo: lo + count])
-            name = index.flush()
-            torch.cuda.synchronize()
-            dt = time.monotonic() - t0
-            cap = index._reader(name).seg.capacity()
-            log(f"  flush {name}: {count} vectors in {dt:.2f} s = "
-                f"{count / dt:.0f} vec/s, capacity {cap} "
-                f"({'beam' if cap > 1 << 18 else 'scan'} tier)")
-            lo += count
+    # phase 8b comes back to this directory, and removes it
+    vamana_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_vamana_")
+    root = vamana_dir.name
+    index = VectorIndex(root, DiskAnnConfig(dim=DIM, mode="on_disk"),
+                        device="cuda")
+    lo = 0
+    for count in VAMANA_FLUSHES:
+        t0 = time.monotonic()
+        index.add_batch(np.arange(lo, lo + count), vv[lo: lo + count])
+        name = index.flush()
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        cap = index._reader(name).seg.capacity()
+        log(f"  flush {name}: {count} vectors in {dt:.2f} s = "
+            f"{count / dt:.0f} vec/s, capacity {cap} "
+            f"({'beam' if cap > 1 << 18 else 'scan'} tier)")
+        lo += count
+    index.close()
+    first = None
+    for rung in ("default", "tight"):
+        index = VectorIndex(root, device="cuda")
+        for n_ in index.segment_names:
+            index._reader(n_)  # load before the breaker tightens
+        if rung == "tight":
+            tight_breaker_limit(GLOBAL_SETTINGS, BREAKER)
+        adc_scan.launches = decode_scan.launches = 0
+        before = index.stats.snapshot()
+        ids, _, wall = search_all(index, vq, sc)
+        after = index.stats.snapshot()
+        launches[f"vamana_{rung}"] = kernel_counts(adc_scan, decode_scan)
+        expanded = (after[Counter.KNN_QUERY_EXPANDED_NODES.value]
+                    - before[Counter.KNN_QUERY_EXPANDED_NODES.value])
+        recall = recall_at_k(ids, gt, K)
+        # the decoded cache serves the pq_decoded provider (beam tier)
+        # and the first scan rung; refused, the beam tier takes the pq
+        # provider and the scan tier the codes-only kernels
+        cached = [index._reader(n_)._pq_decoded is not None
+                  for n_ in index.segment_names]
+        log(f"  {rung} breaker: {1000 * wall / len(vq):.5f} ms/query "
+            f"batched, recall@{K} {recall:.4f}, beam expansions "
+            f"{expanded}, decoded cache built per segment {cached}, "
+            f"launches {launches[f'vamana_{rung}']}")
+        GLOBAL_SETTINGS.put("knn.memory.circuit_breaker.limit", 50.0)
+        if cached != [rung == "default"] * len(cached):
+            raise AssertionError(f"{rung} breaker: decoded cache per "
+                                 f"segment {cached}")
+        if recall < RECALL_TARGET:
+            raise AssertionError(f"vamana {rung} recall@{K} {recall} < "
+                                 f"{RECALL_TARGET}")
+        if expanded <= 0:
+            raise AssertionError("the beam tier never ran")
+        if rung == "tight" and launches["vamana_tight"]["decode_scan"] <= 0:
+            raise AssertionError("the tight scan tier never launched "
+                                 "decode_scan")
+        if first is None:
+            first = ids
         index.close()
-        first = None
+    reopened = VectorIndex(root, device="cuda")
+    again = search_all(reopened, vq[:BATCH], sc)[0]
+    same = bool((again == first[:BATCH]).all())
+    log(f"  reopen: identical top-{K} ids for {BATCH} queries: {same}")
+    reopened.close()
+    if not same:
+        raise AssertionError("reopened on_disk index returned other ids")
+
+    # ---- 8a. in_memory deletes and a background merge --------------------
+    n = args.n
+    n_del, n_add = n // DELETE_SHARE, n // ADD_SHARE
+    n_upd = n_add // UPDATE_SHARE
+    n_new = n_add - n_upd
+    log(f"[8a/8] in_memory deletes and merges on phase 4's index directory: "
+        f"delete {n_del}, then add {n_new} new docs and {n_upd} updates")
+    # the default merge policy: tiered, at most 4 segments, 4 a merge
+    index = VectorIndex(mem_dir.name, device="cuda")
+    drng = np.random.default_rng(args.seed + 8)
+    doomed = drng.choice(n, n_del, replace=False)
+    live = np.ones(n + n_new, bool)
+    live[doomed] = False
+    live[n:] = False  # not added yet
+    t0 = time.monotonic()
+    index.delete(doomed)
+    log(f"  delete of {n_del} docs: {time.monotonic() - t0:.2f} s, "
+        f"has_deletes {index.has_deletes}, doc_count "
+        f"{index.doc_count()}")
+    if not index.has_deletes or index.doc_count() != n - n_del:
+        raise AssertionError("the deletes did not register")
+    rows = np.concatenate([vectors, more_rows(drng, basis, n_new)])
+    rows_dev = torch.as_tensor(rows, device="cuda")
+    truth = live_truth(queries, rows, np.nonzero(live)[0], K)
+    index.search(queries[:BATCH], sc)  # warm: the masks follow
+    adc_scan.launches = decode_scan.launches = 0
+    ids, scores, wall = search_all(index, queries, sc)
+    launches["in_memory_deleted"] = kernel_counts(adc_scan, decode_scan)
+    recall = check_live_answers("after the deletes", ids, scores, queries,
+                                rows_dev, doomed, truth, K)
+    log(f"  search with {n_del} tombstones in the fused valid masks: "
+        f"{1000 * wall / args.queries:.5f} ms/query batched, recall@{K} "
+        f"{recall:.4f} over the live rows, no deleted id, launches "
+        f"{launches['in_memory_deleted']}")
+
+    # the fifth flush: new docs and updates of live ones
+    upd_ids = drng.choice(np.nonzero(live)[0], n_upd, replace=False)
+    upd_rows = more_rows(drng, basis, n_upd)
+    rows[upd_ids] = upd_rows
+    rows_dev[torch.as_tensor(upd_ids, device="cuda")] = torch.as_tensor(
+        upd_rows, device="cuda")
+    live[n:] = True
+    live_ids = np.nonzero(live)[0]
+    truth = live_truth(queries, rows, live_ids, K)
+    index.time_merge_stages = True
+    before = index.stats.snapshot()
+    index.add_batch(np.concatenate([np.arange(n, n + n_new), upd_ids]),
+                    np.concatenate([rows[n:], upd_rows]))
+    adc_scan.launches = decode_scan.launches = 0
+    t0 = time.monotonic()
+    name5 = index.flush()
+    flush_s = time.monotonic() - t0
+    in_flight = index.merge_scheduler.in_flight
+    log(f"  flush {name5}: returned after {flush_s:.2f} s with "
+        f"{in_flight} merge in flight and "
+        f"{len(index.segment_names)} segments")
+    if in_flight != 1:
+        raise AssertionError("the fifth flush started no background "
+                             "merge, or waited for it")
+    # at BEAM_EF: a batch that starts after the swap meets the merged
+    # segment on the beam tier (the scan tier does not read ef_search)
+    deep = SearchConfig(k=K, ef_search=BEAM_EF)
+    served, mid_recall, t_mid = 0, [], 0.0
+    while served == 0 or index.merge_scheduler.in_flight:
+        lo = (served * BATCH) % (args.queries - BATCH + 1)
+        t1 = time.monotonic()
+        res = index.search(queries[lo: lo + BATCH], deep)
+        t_mid += time.monotonic() - t1
+        still = index.merge_scheduler.in_flight
+        mid_recall.append(check_live_answers(
+            "during the merge", res.doc_ids, res.scores,
+            queries[lo: lo + BATCH], rows_dev, doomed,
+            truth[lo: lo + BATCH], K))
+        served += 1
+        if not still:
+            break
+    index.await_merges()
+    torch.cuda.synchronize()
+    merge_wall = time.monotonic() - t0 - flush_s
+    launches["in_memory_during_merge"] = kernel_counts(adc_scan,
+                                                       decode_scan)
+    after = index.stats.snapshot()
+    merge_ms = (after[Counter.KNN_GRAPH_MERGE_TIME.value]
+                - before[Counter.KNN_GRAPH_MERGE_TIME.value])
+    merged_live = len(live_ids) - n_add
+    log(f"  background merge: {merge_wall:.2f} s from the flush's return "
+        f"to await_merges, KNN_GRAPH_MERGE_TIME {merge_ms} ms = "
+        f"{1000 * merged_live / max(merge_ms, 1):.0f} live rows merged/s "
+        f"({merged_live} live rows of 4 segments); {served} batches of "
+        f"{BATCH} served meanwhile at {1000 * t_mid / served:.1f} ms a "
+        f"batch, recall@{K} {min(mid_recall):.4f}-{max(mid_recall):.4f}, "
+        f"launches {launches['in_memory_during_merge']}")
+    log(f"  merge stages (host clock after a device sync, searches "
+        f"running beside): " + ", ".join(
+            f"{k} {v:.2f} s" for k, v in index.last_merge_timings.items()))
+    names = index.segment_names
+    caps = {n_: index._reader(n_).seg.capacity() for n_ in names}
+    used = {n_: index._reader(n_).seg.docmap.num_ordinals for n_ in names}
+    log(f"  segments after the merge: {names}, capacities {caps}, used "
+        f"ordinals {used}, doc_count {index.doc_count()}")
+    merged = "merged_4segs_m1"
+    if (sorted(names) != sorted([merged, name5])
+            or caps[merged] <= (1 << 18) or caps[name5] > (1 << 18)
+            or used[name5] != n_add
+            or (n == 1_000_000 and caps[merged] != 1 << 20)):
+        raise AssertionError("the merge left another segment set")
+    if index.doc_count() != len(live_ids):
+        raise AssertionError(f"doc_count {index.doc_count()} != "
+                             f"{len(live_ids)} live docs")
+    def search_both(what):
+        """Search at the default ef_search (reported) and at BEAM_EF
+        (held to the live set and the target) -> the latter's ids."""
+        ids, _, wall = search_all(index, queries, sc)
+        shallow = recall_at_k(ids, truth, K)
+        ids, scores, deep_wall = search_all(index, queries, deep)
+        recall = check_live_answers(what, ids, scores, queries, rows_dev,
+                                    doomed, truth, K)
+        log(f"  search {what}: ef_search {sc.resolved_ef()}: "
+            f"{1000 * wall / args.queries:.5f} ms/query batched, "
+            f"recall@{K} {shallow:.4f}; ef_search {BEAM_EF}: "
+            f"{1000 * deep_wall / args.queries:.5f} ms/query batched, "
+            f"recall@{K} {recall:.4f}")
+        return ids
+
+    index.search(queries[:BATCH], sc)  # warm
+    adc_scan.launches = decode_scan.launches = 0
+    stats0 = index.stats.snapshot()
+    search_both("after the merge (beam tier + scan tier)")
+    launches["in_memory_merged"] = kernel_counts(adc_scan, decode_scan)
+    expanded = (index.stats.snapshot()[
+        Counter.KNN_QUERY_EXPANDED_NODES.value]
+        - stats0[Counter.KNN_QUERY_EXPANDED_NODES.value])
+    log(f"  beam expansions {expanded}, launches "
+        f"{launches['in_memory_merged']}")
+    if expanded <= 0 or launches["in_memory_merged"]["adc_scan"] <= 0:
+        raise AssertionError("the merged index did not run both tiers")
+
+    t0 = time.monotonic()
+    forced = index.force_merge()
+    torch.cuda.synchronize()
+    force_s = time.monotonic() - t0
+    log(f"  force_merge -> {forced} in {force_s:.2f} s, stages: "
+        + ", ".join(f"{k} {v:.2f} s"
+                    for k, v in index.last_merge_timings.items())
+        + f"; capacity {index._reader(forced).seg.capacity()}, "
+        f"has_deletes {index.has_deletes}")
+    if index.segment_names != [forced] or index.has_deletes:
+        raise AssertionError("force_merge left tombstones or segments")
+    adc_scan.launches = decode_scan.launches = 0
+    ids = search_both("after force_merge (one beam-tier segment)")
+    launches["in_memory_force_merged"] = kernel_counts(adc_scan,
+                                                       decode_scan)
+    index.close()
+    again = VectorIndex(mem_dir.name, device="cuda")
+    same = bool((again.search(queries[:BATCH], deep).doc_ids
+                 == ids[:BATCH]).all())
+    log(f"  reopen: {again.segment_names}, identical top-{K} ids for "
+        f"{BATCH} queries: {same}")
+    again.close()
+    if not same or again.doc_count() != len(live_ids):
+        raise AssertionError("the reopened merged index differs")
+    del again
+    gc.collect()
+    torch.cuda.empty_cache()
+    # yardstick: the same live rows in one flush of a fresh index (one
+    # segment of the same capacity, built in one go)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_one_") as one:
+        index = VectorIndex(one, DiskAnnConfig(dim=DIM), device="cuda")
+        t0 = time.monotonic()
+        index.add_batch(live_ids, rows[live_ids])
+        index.flush()
+        torch.cuda.synchronize()
+        log(f"  yardstick, one flush of the {len(live_ids)} live rows: "
+            f"{time.monotonic() - t0:.2f} s")
+        index.search(queries[:BATCH], sc)  # warm: the segment load
+        search_both("the one-flush yardstick")
+        index.close()
+    del rows, rows_dev, truth
+    mem_dir.cleanup()
+    del vectors, queries
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 8b. on_disk deletes and a merge ----------------------------------
+    doomed = np.random.default_rng(args.seed + 9).choice(
+        n_v, n_v // DELETE_SHARE, replace=False)
+    keep = np.setdiff1d(np.arange(n_v), doomed)
+    log(f"[8b/8] on_disk vamana deletes and force_merge: delete "
+        f"{doomed.size} of {n_v} docs")
+    truth = live_truth(vq, vv, keep, K)
+    root = vamana_dir.name
+    index = VectorIndex(root, device="cuda")
+    index.delete(doomed)
+    index.close()
+
+    def both_breakers(tag):
+        """Search under the default and the tight breaker -> launches
+        of the tight one; no deleted id, recall at the target."""
         for rung in ("default", "tight"):
-            index = VectorIndex(root, device="cuda")
-            for n_ in index.segment_names:
-                index._reader(n_)  # load before the breaker tightens
+            idx = VectorIndex(root, device="cuda")
+            for n_ in idx.segment_names:
+                idx._reader(n_)  # load before the breaker tightens
             if rung == "tight":
                 tight_breaker_limit(GLOBAL_SETTINGS, BREAKER)
             adc_scan.launches = decode_scan.launches = 0
-            before = index.stats.snapshot()
-            ids, _, wall = search_all(index, vq, sc)
-            after = index.stats.snapshot()
-            launches[f"vamana_{rung}"] = kernel_counts(adc_scan, decode_scan)
-            expanded = (after[Counter.KNN_QUERY_EXPANDED_NODES.value]
-                        - before[Counter.KNN_QUERY_EXPANDED_NODES.value])
-            recall = recall_at_k(ids, gt, K)
-            # the decoded cache serves the pq_decoded provider (beam tier)
-            # and the first scan rung; refused, the beam tier takes the pq
-            # provider and the scan tier the codes-only kernels
-            cached = [index._reader(n_)._pq_decoded is not None
-                      for n_ in index.segment_names]
-            log(f"  {rung} breaker: {1000 * wall / len(vq):.5f} ms/query "
-                f"batched, recall@{K} {recall:.4f}, beam expansions "
-                f"{expanded}, decoded cache built per segment {cached}, "
-                f"launches {launches[f'vamana_{rung}']}")
-            GLOBAL_SETTINGS.put("knn.memory.circuit_breaker.limit", 50.0)
-            if cached != [rung == "default"] * len(cached):
-                raise AssertionError(f"{rung} breaker: decoded cache per "
-                                     f"segment {cached}")
+            try:
+                ids, _, wall = search_all(idx, vq, sc)
+            finally:
+                GLOBAL_SETTINGS.put("knn.memory.circuit_breaker.limit",
+                                    50.0)
+            counts = kernel_counts(adc_scan, decode_scan)
+            launches[f"vamana_{tag}_{rung}"] = counts
+            recall = recall_at_k(ids, truth, K)
+            log(f"  {tag}, {rung} breaker: "
+                f"{1000 * wall / len(vq):.5f} ms/query batched, "
+                f"recall@{K} {recall:.4f} over the live rows, segments "
+                f"{idx.segment_names}, launches {counts}")
+            idx.close()
+            if np.isin(ids, doomed).any():
+                raise AssertionError(f"{tag}, {rung}: a deleted doc id "
+                                     f"came back")
             if recall < RECALL_TARGET:
-                raise AssertionError(f"vamana {rung} recall@{K} {recall} < "
-                                     f"{RECALL_TARGET}")
-            if expanded <= 0:
-                raise AssertionError("the beam tier never ran")
-            if rung == "tight" and launches["vamana_tight"]["decode_scan"] <= 0:
-                raise AssertionError("the tight scan tier never launched "
-                                     "decode_scan")
-            if first is None:
-                first = ids
-            index.close()
-        reopened = VectorIndex(root, device="cuda")
-        again = search_all(reopened, vq[:BATCH], sc)[0]
-        same = bool((again == first[:BATCH]).all())
-        log(f"  reopen: identical top-{K} ids for {BATCH} queries: {same}")
-        reopened.close()
-        if not same:
-            raise AssertionError("reopened on_disk index returned other ids")
+                raise AssertionError(f"{tag}, {rung}: recall@{K} "
+                                     f"{recall} < {RECALL_TARGET}")
+        return counts
+
+    counts = both_breakers("deleted")
+    if counts["decode_scan"] <= 0:
+        raise AssertionError("the tight scan tier with tombstones never "
+                             "launched decode_scan")
+    index = VectorIndex(root, device="cuda")
+    index.time_merge_stages = True
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    merged = index.force_merge()
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    seg = index._reader(merged).seg
+    row_bytes = (Path(root) / merged / "rows.f32").stat().st_size
+    used = seg.docmap.num_ordinals
+    log(f"  force_merge -> {merged} in {dt:.2f} s ("
+        + ", ".join(f"{k} {v:.2f} s"
+                    for k, v in index.last_merge_timings.items())
+        + f"), peak device memory during the merge {peak} B; capacity "
+        f"{seg.capacity()}, used ordinals {used}, live "
+        f"{seg.live_count()}, rows.f32 {row_bytes} B, doc_count "
+        f"{index.doc_count()}")
+    if (index.segment_names != [merged] or index.has_deletes
+            or seg.row_store is None or row_bytes != used * DIM * 4
+            or index.doc_count() != keep.size
+            or (n_v == 500_000 and seg.capacity() != 1 << 19)):
+        raise AssertionError("the on_disk merge left another segment")
+    index.close()
+    both_breakers("merged")
+    vamana_dir.cleanup()
 
     total = {k: sum(v[k] for v in launches.values())
              for k in ("adc_scan", "decode_scan")}

@@ -190,10 +190,11 @@ class SegmentReader:
         self.seg = seg
         self.stats = stats
         # device masks kept between searches: the unfiltered accept mask
-        # with the tombstones it was built from, and the scan tier's mask
-        # of live, mapped ordinals
-        self._accept_key: frozenset | None = None
-        self._accept_mask: torch.Tensor | None = None
+        # with the tombstones it was built from, as one (tombstones, mask)
+        # pair that is replaced whole (searches may run from several
+        # threads, each with its own tombstone snapshot), and the scan
+        # tier's mask of live, mapped ordinals
+        self._accept_cache: tuple[frozenset, torch.Tensor | None] | None = None
         self._valid: torch.Tensor | None = None
         # on_disk scoring caches, built on first use when the breaker
         # allows: the decoded-bf16 cache with its row norms, and the
@@ -220,7 +221,8 @@ class SegmentReader:
             for s in range(0, dec.shape[0], DECODED_MATMUL_ROWS):
                 blk = dec[s: s + DECODED_MATMUL_ROWS].float()
                 sq[s: s + blk.shape[0]] = torch.linalg.vecdot(blk, blk)
-            self._pq_decoded, self._pq_decoded_sq = dec, sq
+            self._pq_decoded_sq = sq  # before the cache that announces it
+            self._pq_decoded = dec
         return self._pq_decoded
 
     def _codes_sq(self) -> torch.Tensor:
@@ -282,9 +284,7 @@ class SegmentReader:
                     and seg.capacity() <= self._scan_bound()):
             return self._scan_search(queries, params, accept, filtered)
         if seg.graph.upper_adjacency is not None:
-            raise NotImplementedError(
-                "hierarchy-layer search is not ported yet "
-                "(ROADMAP queue 1 item 9)")
+            raise NotImplementedError(segment_mod.NOT_PORTED["hierarchy"])
 
         t0 = time.monotonic()
         with phase("query", stats=self.stats):
@@ -316,13 +316,15 @@ class SegmentReader:
             return torch.as_tensor(
                 ordinal_accept_mask(self.seg, accept_docs, deleted_docs),
                 device=self.seg.device)
+        # the index hands the same frozen snapshot until the set changes
         key = frozenset(deleted_docs or ())
-        if key != self._accept_key:
+        cached = self._accept_cache
+        if cached is None or (cached[0] is not key and cached[0] != key):
             mask = ordinal_accept_mask(self.seg, None, key)
-            self._accept_mask = (None if mask is None else
-                                 torch.as_tensor(mask, device=self.seg.device))
-            self._accept_key = key
-        return self._accept_mask
+            cached = self._accept_cache = (
+                key, None if mask is None else
+                torch.as_tensor(mask, device=self.seg.device))
+        return cached[1]
 
     def _live_valid(self) -> torch.Tensor:
         """Live ordinals that map to a doc, built once per segment."""
@@ -501,9 +503,7 @@ class SegmentReader:
                                 constant_values=-np.inf)
             return cand_ids, approx, int(scanned) * queries.shape[0], 0
         if seg.graph.upper_adjacency is not None:
-            raise NotImplementedError(
-                "hierarchy-layer search is not ported yet "
-                "(ROADMAP queue 1 item 9)")
+            raise NotImplementedError(segment_mod.NOT_PORTED["hierarchy"])
         try:
             source = {"pq_decoded": self._decoded_cache()}
         except CircuitBreakerException:  # memory-tight: codes only

@@ -53,11 +53,15 @@ from opensearch_jvector_tpu_torch.utils.native_store import (
 QUANT_TYPE_BYTE = {QUANT_NONE: 0, QUANT_PQ: 1, QUANT_NVQ: 2,
                    "1bit": 3, "2bit": 4, "4bit": 5}
 
+# ROADMAP items are named by title: their numbers change
+OTHER_QUANTIZERS = 'ROADMAP queue 1, "Other quantizers"'
 NOT_PORTED = {
-    "nvq": "NVQ segments are not ported yet (ROADMAP queue 1 item 9)",
+    "nvq": f"NVQ segments are not ported yet ({OTHER_QUANTIZERS})",
     "scalar": "scalar (1/2/4-bit) segments are not ported yet "
-              "(ROADMAP queue 1 item 9)",
-    "aniso": "anisotropic PQ is not ported yet (ROADMAP queue 1 item 9)",
+              f"({OTHER_QUANTIZERS})",
+    "aniso": f"anisotropic PQ is not ported yet ({OTHER_QUANTIZERS})",
+    "hierarchy": "the hierarchy layer is not ported yet "
+                 f"({OTHER_QUANTIZERS})",
 }
 
 

@@ -16,8 +16,8 @@ Port of the flush of `opensearch_jvector_tpu/index/writer.py`:
 Pure quantized construction (on_disk graph flushes of capacity >=
 `quantized_build_min_capacity`), NVQ, scalar quantization and the
 hierarchy layer are not ported yet and raise NotImplementedError naming
-their ROADMAP item. The reference's device-resident row provider
-(`flush(device_rows=...)`) is not ported either.
+their ROADMAP item by its title. The reference's device-resident row
+provider (`flush(device_rows=...)`) is not ported either.
 """
 
 from __future__ import annotations
@@ -37,7 +37,11 @@ from opensearch_jvector_tpu_torch.api.config import (
 )
 from opensearch_jvector_tpu_torch.api.stats import STATS, Counter, StatsRegistry
 from opensearch_jvector_tpu_torch.index.docmap import DocMap
-from opensearch_jvector_tpu_torch.index.segment import Segment, write_segment
+from opensearch_jvector_tpu_torch.index.segment import (
+    OTHER_QUANTIZERS,
+    Segment,
+    write_segment,
+)
 from opensearch_jvector_tpu_torch.models import pq as pq_mod
 from opensearch_jvector_tpu_torch.models.builder import GraphIndexBuilder
 from opensearch_jvector_tpu_torch.models.graph import (
@@ -54,13 +58,34 @@ def check_config_ported(cfg: DiskAnnConfig) -> None:
     if cfg.quantization_type not in (QUANT_NONE, QUANT_PQ):
         raise NotImplementedError(
             f"{cfg.quantization_type} quantization is not ported yet "
-            "(ROADMAP queue 1 item 9)")
+            f"({OTHER_QUANTIZERS})")
     if cfg.pq_anisotropic_threshold:
         raise NotImplementedError(
-            "anisotropic PQ is not ported yet (ROADMAP queue 1 item 9)")
+            f"anisotropic PQ is not ported yet ({OTHER_QUANTIZERS})")
     if cfg.hierarchy_enabled:
         raise NotImplementedError(
-            "the hierarchy layer is not ported yet (ROADMAP queue 1 item 9)")
+            f"the hierarchy layer is not ported yet ({OTHER_QUANTIZERS})")
+
+
+# on_disk PQ graph segments at or above this pow2 capacity take the
+# reference's pure quantized construction (no fp32 rows on the device),
+# which is not ported
+QUANTIZED_BUILD_MIN_CAPACITY = 1 << 22
+
+
+def check_quantized_build_gate(cfg: DiskAnnConfig, n: int, cap: int,
+                               gate: int, what: str) -> None:
+    """Raise NotImplementedError where an on_disk PQ graph segment of `n`
+    rows and capacity `cap` would need the quantized build."""
+    if (cfg.mode == "on_disk" and cfg.index_type != "flat"
+            and cfg.quantization_type == QUANT_PQ
+            and n >= cfg.min_batch_size_for_quantization and cap >= gate):
+        raise NotImplementedError(
+            f"an on_disk graph {what} of capacity {cap} (>= {gate}) takes "
+            "the quantized build, which is not ported yet (ROADMAP queue 1, "
+            '"on_disk remnants: the quantized build"; the reference\'s '
+            "quantized build writes a dead-entry graph for non-pow2 "
+            "flushes, ROADMAP queue 3)")
 
 
 class IndexWriter:
@@ -72,10 +97,7 @@ class IndexWriter:
         stats: StatsRegistry = STATS,
     ):
         check_config_ported(config)
-        # on_disk PQ graph flushes at or above this pow2 capacity take the
-        # reference's pure quantized construction (no fp32 rows on the
-        # device), which is not ported
-        self.quantized_build_min_capacity = 1 << 22
+        self.quantized_build_min_capacity = QUANTIZED_BUILD_MIN_CAPACITY
         self.root = Path(root)
         self.config = config
         self.device = torch.device(device)
@@ -126,6 +148,30 @@ class IndexWriter:
                 (ids, parents, v.astype(np.float32, copy=False)))
             self._buffered += ids.shape[0]
         return ids.shape[0]
+
+    def num_buffered(self) -> int:
+        return self._buffered
+
+    def delete_buffered(self, doc_ids) -> int:
+        """Drop buffered (un-flushed) docs matching `doc_ids`; returns the
+        number of buffered entries removed. Docs already snapshotted by an
+        in-flight flush are not here anymore: `VectorIndex.delete` covers
+        those through its pending set."""
+        dead = np.atleast_1d(np.asarray(doc_ids, np.int64))
+        removed = 0
+        with self._buf_lock:
+            new_blocks = []
+            for ids, parents, vecs in self._blocks:
+                keep = ~np.isin(ids, dead)
+                removed += int((~keep).sum())
+                if keep.all():
+                    new_blocks.append((ids, parents, vecs))
+                elif keep.any():
+                    new_blocks.append((ids[keep], parents[keep], vecs[keep]))
+            if removed:
+                self._blocks = new_blocks
+                self._buffered -= removed
+        return removed
 
     def _quantize_for_flush(self, vectors: torch.Tensor | np.ndarray):
         """Train PQ and encode when n >= min batch; else None. A numpy
@@ -195,15 +241,8 @@ class IndexWriter:
         n = int(doc_ids.size)
         name = name or f"seg_{counter:06d}_{n}"
         cap = bucket_capacity(n)
-        if (on_disk and not flat and cfg.quantization_type == QUANT_PQ
-                and n >= cfg.min_batch_size_for_quantization
-                and cap >= self.quantized_build_min_capacity):
-            raise NotImplementedError(
-                f"an on_disk graph flush of capacity {cap} (>= "
-                f"{self.quantized_build_min_capacity}) takes the quantized "
-                "build, which is not ported yet (ROADMAP queue 1 item 10; "
-                "the reference's quantized build writes a dead-entry graph "
-                "for non-pow2 flushes, ROADMAP queue 3)")
+        check_quantized_build_gate(cfg, n, cap,
+                                   self.quantized_build_min_capacity, "flush")
         # flat segments keep the corpus on the host (train on a host
         # sample, streamed encode); graph builds need the rows on the device
         vectors = np.ascontiguousarray(vectors_np, np.float32)

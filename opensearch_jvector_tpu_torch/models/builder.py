@@ -8,8 +8,13 @@ rows, and then computes reverse edges on the host; nodes whose lists
 overflow are re-pruned. Rounds are pipelined as in the reference: round k's
 search runs before round k-1's reverse edges land, so reverse edges land
 one round late (docs/design.md, "pipelined insert rounds").
-`cleanup` folds tombstones in (2-hop splice), enforces the degree bound and
-links every live node that the entry cannot reach.
+`add_nodes` delta-inserts new ordinals into an existing graph with the same
+rounds (the incremental merge), `mark_deleted` tombstones nodes,
+`refine_graph` re-searches and re-prunes every node of a finished graph,
+and `cleanup` folds tombstones in (2-hop splice), enforces the degree bound
+and links every live node that the entry cannot reach. A reverse edge is
+appended only where the destination's row does not hold the source yet, so
+no row carries a neighbour twice.
 
 The adjacency lives on the build device and is updated in place; the host
 keeps only the degree mirror and the small edge lists. There is no batch
@@ -17,12 +22,14 @@ padding: the reference pads rounds to power-of-two widths only to bound
 XLA compiles. `build(..., pq={"decoded": cache})` scores the insert
 rounds' beam candidates from a bf16 decoded-PQ cache (the on_disk flush's
 build source) while every prune stays on the fp32 rows. Pure quantized
-construction (no fp32 rows on the device), deletes/merges (`add_nodes`,
-`mark_deleted`, `refine_graph`) and the hierarchy layer wait (ROADMAP
-queue 1 items 8-10).
+construction (no fp32 rows on the device) and the hierarchy layer wait
+(ROADMAP queue 1, "on_disk remnants: the quantized build" and "Other
+quantizers").
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -179,6 +186,8 @@ class GraphIndexBuilder:
     Usage:
         builder = GraphIndexBuilder(dim, max_degree=32, beam_width=100)
         graph = builder.build(vectors, simf)   # vectors on the build device
+        graph = builder.add_nodes(graph, vectors, new_ids, simf)  # delta
+        graph = builder.cleanup(graph, vectors, simf)  # prune + repair
     """
 
     def __init__(
@@ -189,6 +198,7 @@ class GraphIndexBuilder:
         alpha: float = 1.2,
         neighbor_overflow: float = 1.2,
         batch_size: int | None = None,  # None -> auto by dim (see below)
+        refine_passes: int = 0,  # refine_graph passes at the end of build
     ):
         self.dim = dim
         self.max_degree = int(max_degree)
@@ -205,6 +215,7 @@ class GraphIndexBuilder:
             while batch_size * 2 <= min(cap, 16384):
                 batch_size *= 2
         self.batch_size = int(batch_size)
+        self.refine_passes = int(refine_passes)
         # overflow-prune extras per node per round: bounds the O(C^2) prune
         # width; back-edges beyond it in one round are dropped (cleanup
         # repairs any orphan)
@@ -235,18 +246,29 @@ class GraphIndexBuilder:
 
     # -- adjacency application ----------------------------------------------
 
-    def _compute_back_edges(self, deg, new_ids, selected, cap):
+    @staticmethod
+    def _edge_present(st: _DeviceAdj, ids_t: torch.Tensor,
+                      sel: torch.Tensor) -> torch.Tensor:
+        """[B, ms] bool: the row of `sel[b, j]` already holds `ids_t[b]`
+        (a mutual selection: its reverse edge would be a duplicate)."""
+        rows = st.adj[sel.clamp(min=0)]  # [B, ms, cap_deg]
+        return (rows == ids_t[:, None, None]).any(-1) & (sel >= 0)
+
+    def _compute_back_edges(self, deg, new_ids, selected, cap, present):
         """Host-side reverse-edge slot assignment (deterministic).
 
         Returns (dst, slot, src) fitting edges plus overflow prune work
         (overflow_ids, extras). Edges that don't fit become overflow-prune
         candidates, so the node chooses among (current neighbors ∪ new
-        sources) instead of silently dropping them.
+        sources) instead of silently dropping them. `present` [B, ms] marks
+        the edges whose destination row holds the source already
+        (`_edge_present`): they are skipped, so no row gets a neighbour
+        twice.
         """
         b, ms = selected.shape
         src = np.repeat(new_ids, ms)
         dst = selected.reshape(-1)
-        keep = dst >= 0
+        keep = (dst >= 0) & ~present.reshape(-1)
         src, dst = src[keep], dst[keep]
         empty = (np.empty(0, np.int64),) * 3
         if dst.size == 0:
@@ -276,7 +298,9 @@ class GraphIndexBuilder:
 
     def _prune_overflow(self, st: _DeviceAdj, node_ids, vectors, simf,
                         extras=None):
-        """Re-prune `node_ids` to max_degree (rows written back).
+        """Re-prune `node_ids` to max_degree (rows written back) from their
+        rows plus `extras` [len(node_ids), any width] (host array or device
+        tensor, -1 padded).
 
         A node's prune reads only its own row and its extras, so chunking
         over `batch_size` nodes does not change the result."""
@@ -286,13 +310,12 @@ class GraphIndexBuilder:
         chunk = self.batch_size
         for s in range(0, node_ids.size, chunk):
             ids = node_ids[s: s + chunk]
-            ex = np.full((ids.size, self.extra_width), -1, np.int32)
-            if extras is not None and extras.size:
-                blk = extras[s: s + chunk]
-                ex[:, : blk.shape[1]] = blk[:, : self.extra_width]
             ids_t = torch.as_tensor(ids, device=dev)
-            cand = torch.cat([st.adj[ids_t], torch.as_tensor(ex, device=dev)],
-                             dim=1).long()
+            cand = st.adj[ids_t]
+            if extras is not None and extras.shape[1]:
+                ex = torch.as_tensor(extras[s: s + chunk], device=dev)
+                cand = torch.cat([cand, ex.to(torch.int32)], dim=1)
+            cand = cand.long()
             pvecs = vectors[ids_t]
             cvecs = vectors[cand.clamp(min=0)]
             scores = torch.where(
@@ -336,10 +359,13 @@ class GraphIndexBuilder:
         """Host half of an insert round: fetch the prune output, compute
         reverse-edge slots, apply them, run overflow prunes."""
         new_ids, sel_dev = pending
-        sel = sel_dev.cpu().numpy()
+        ids_t = torch.as_tensor(new_ids, device=sel_dev.device)
+        both = torch.stack([sel_dev,
+                            self._edge_present(st, ids_t, sel_dev).long()])
+        sel, present = both.cpu().numpy()  # one transfer
         st.deg[new_ids] = (sel >= 0).sum(axis=1)
         dst, slot, src, overflowed, extras = self._compute_back_edges(
-            st.deg, new_ids, sel, self.overflow_degree)
+            st.deg, new_ids, sel, self.overflow_degree, present.astype(bool))
         st.write_edges(dst, slot, src)
         self._prune_overflow(st, overflowed, vectors, simf, extras=extras)
 
@@ -420,7 +446,104 @@ class GraphIndexBuilder:
             live=torch.as_tensor(live, device=dev),
             entry=entry,
         )
+        if self.refine_passes > 0:
+            graph = self.refine_graph(graph, vectors, simf, pq,
+                                      passes=self.refine_passes)
         return self.cleanup(graph, vectors, simf)
+
+    def refine_graph(
+        self,
+        graph: VamanaGraph,
+        vectors: torch.Tensor,
+        simf: SimilarityFunction,
+        pq: dict | None = None,
+        passes: int = 1,
+    ) -> VamanaGraph:
+        """Second-pass refinement (DiskANN's two-pass build): re-search
+        every live node over the finished graph, re-prune its list from
+        (current neighbors ∪ the best 2 * max_degree fresh beam
+        candidates), then re-apply reverse edges. The adjacency is updated
+        in place."""
+        dev = graph.adjacency.device
+        st = _DeviceAdj(graph.adjacency, graph.degrees.cpu().numpy().copy())
+        vectors = pad_rows(vectors.float(), graph.capacity)
+        if pq is not None:
+            pq = {"decoded": pad_rows(pq["decoded"], graph.capacity)}
+        ids_all = np.nonzero(graph.live.cpu().numpy())[0]
+        rng = np.random.default_rng(BUILD_SEED + 1)
+        for _ in range(passes):
+            order = rng.permutation(ids_all)
+            for s in range(0, order.size, self.batch_size):
+                batch = order[s: s + self.batch_size]
+                batch_t = torch.as_tensor(batch, device=dev)
+                cand_ids, _ = self._search_candidates(
+                    st.adj, graph.live, graph.entry, vectors,
+                    vectors[batch_t], simf, pq)
+                self._prune_overflow(
+                    st, batch, vectors, simf,
+                    extras=cand_ids[:, : 2 * self.max_degree])
+                sel = st.adj[batch_t][:, : self.max_degree].long()
+                self._round_finish(st, (batch, sel), vectors, simf)
+        return dataclasses.replace(
+            graph, adjacency=st.adj,
+            degrees=torch.as_tensor(st.deg, device=dev))
+
+    def _delta_chunks(self, n: int) -> list[int]:
+        """Round sizes of a delta insert: full `batch_size` rounds, then
+        the remainder."""
+        full, rem = divmod(int(n), self.batch_size)
+        return [self.batch_size] * full + ([rem] if rem else [])
+
+    def add_nodes(
+        self,
+        graph: VamanaGraph,
+        vectors: torch.Tensor,  # full row storage covering new_ids
+        new_ids: np.ndarray,
+        simf: SimilarityFunction,
+        pq: dict | None = None,  # {"decoded": bf16 rows}: beam source
+    ) -> VamanaGraph:
+        """Delta-insert `new_ids` into an existing graph (the incremental
+        merge's append into the leading segment's graph). The input graph
+        is left as it was."""
+        dev = graph.adjacency.device
+        st = _DeviceAdj(graph.adjacency.clone(),
+                        graph.degrees.cpu().numpy().copy())
+        live_dev = graph.live.clone()
+        vectors = pad_rows(vectors.float(), graph.capacity)
+        if pq is not None:
+            pq = {"decoded": pad_rows(pq["decoded"], graph.capacity)}
+        # tombstoned nodes that the loaded adjacency still references must
+        # be masked out of the candidate pools: probed on the device, one
+        # scalar read back
+        adj = st.adj.long()
+        self._has_tombstones = not bool(torch.all(
+            (adj < 0) | live_dev[adj.clamp(min=0)]))
+        del adj
+
+        new_ids = np.asarray(new_ids)
+        pos = 0
+        pending = None
+        for c in self._delta_chunks(new_ids.size):
+            batch = new_ids[pos: pos + c]
+            pos += c
+            nxt = self._round_dispatch(st, live_dev, graph.entry, batch,
+                                       vectors, simf, pq)
+            if pending is not None:
+                self._round_finish(st, pending, vectors, simf)
+            pending = nxt
+        if pending is not None:
+            self._round_finish(st, pending, vectors, simf)
+        return dataclasses.replace(
+            graph, adjacency=st.adj,
+            degrees=torch.as_tensor(st.deg, device=dev), live=live_dev)
+
+    @staticmethod
+    def mark_deleted(graph: VamanaGraph, ids: np.ndarray) -> VamanaGraph:
+        """Tombstone nodes (folded into the adjacency at `cleanup`)."""
+        live = graph.live.clone()
+        live[torch.as_tensor(np.asarray(ids), dtype=torch.long,
+                             device=live.device)] = False
+        return dataclasses.replace(graph, live=live)
 
     def _bootstrap(self, st: _DeviceAdj, ids, vectors, simf):
         """All-pairs + prune over the first block (no graph to search)."""
@@ -436,22 +559,19 @@ class GraphIndexBuilder:
         sel_t = robust_prune_batch(
             v, ids_t[idx], v[idx], cand_scores, self.alpha, self.max_degree,
             simf, point_ids=ids_t)
-        sel = sel_t.cpu().numpy()
-        st.deg[ids] = (sel >= 0).sum(axis=1)
-        # reverse edges, exactly like an insert round (bidirectional links)
-        dst, slot, src, overflowed, extras = self._compute_back_edges(
-            st.deg, np.asarray(ids), sel, self.overflow_degree)
+        # forward rows, then reverse edges exactly like an insert round
+        # (bidirectional links)
         st.write_rows(ids_t, sel_t)
-        st.write_edges(dst, slot, src)
-        self._prune_overflow(st, overflowed, vectors, simf, extras=extras)
+        self._round_finish(st, (np.asarray(ids), sel_t), vectors, simf)
 
     def cleanup(self, graph: VamanaGraph, vectors: torch.Tensor,
                 simf: SimilarityFunction) -> VamanaGraph:
         """Fold deletes in and enforce the degree bound (cleanup() parity).
 
         Dead neighbors are replaced by their own live neighbors (2-hop
-        splice), every overflowing node is re-pruned to max_degree, a dead
-        entry is replaced, and unreachable live nodes are linked in."""
+        splice), every node that overflows or holds a neighbour twice is
+        re-pruned to max_degree, a dead entry is replaced, and unreachable
+        live nodes are linked in. The adjacency is updated in place."""
         dev = graph.adjacency.device
         st = _DeviceAdj(graph.adjacency, graph.degrees.cpu().numpy().copy())
         live = graph.live.cpu().numpy()
@@ -472,7 +592,14 @@ class GraphIndexBuilder:
                                          live_dev, vectors, simf)
                 st.deg[ids] = (sel >= 0).sum(1).cpu().numpy()
 
-        over = np.nonzero(st.deg > self.max_degree)[0]
+        # rows over the degree bound, and rows that hold a neighbour twice
+        # (graphs written by the reference's builder can): the prune keeps
+        # one occurrence
+        srt = torch.sort(st.adj, dim=1).values
+        has_dup = torch.any((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0),
+                            dim=1).cpu().numpy()
+        del srt
+        over = np.nonzero((st.deg > self.max_degree) | (has_dup & live))[0]
         self._prune_overflow(st, over, vectors, simf)
 
         # entry repair: if the entry died, take the live node closest to

@@ -42,7 +42,7 @@ class VamanaGraph:
 
     `upper_adjacency` is the hierarchy layer of the reference's format. It
     is read and written so segments round-trip, but searching it waits for
-    the hierarchy port (ROADMAP queue 1 item 9).
+    the hierarchy port (ROADMAP queue 1, "Other quantizers").
     """
 
     adjacency: torch.Tensor  # int32 [capacity, max_degree], -1 padded
@@ -85,4 +85,23 @@ class VamanaGraph:
                                 device=device),
             live=torch.zeros((capacity,), dtype=torch.bool, device=device),
             entry=0,
+        )
+
+    def with_capacity(self, new_capacity: int) -> "VamanaGraph":
+        """Grow (never shrink) capacity, preserving contents."""
+        if new_capacity <= self.capacity:
+            return self
+        pad = new_capacity - self.capacity
+
+        def grown(t: torch.Tensor, fill) -> torch.Tensor:
+            tail = t.new_full((pad, *t.shape[1:]), fill)
+            return torch.cat([t, tail])
+
+        return VamanaGraph(
+            adjacency=grown(self.adjacency, -1),
+            degrees=grown(self.degrees, 0),
+            live=grown(self.live, False),
+            entry=self.entry,
+            upper_adjacency=(None if self.upper_adjacency is None
+                             else grown(self.upper_adjacency, -1)),
         )

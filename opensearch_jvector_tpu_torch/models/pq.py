@@ -6,7 +6,8 @@ Port of `opensearch_jvector_tpu/models/pq.py` for plain (isotropic) PQ:
   * the reference's dimension-adaptive default subspace count
   * host-resident corpora (numpy) train on a host sample and encode in
     streamed chunks, so the corpus never has to fit on the device
-Anisotropic codebooks and `refine_pq` wait (ROADMAP queue 1 items 8-9).
+  * `refine_pq` adapts a merge's leading codebooks to the merged rows
+Anisotropic codebooks wait (ROADMAP queue 1, "Other quantizers").
 """
 
 from __future__ import annotations
@@ -19,7 +20,10 @@ import torch
 from opensearch_jvector_tpu_torch.ops import adc as adc_ops
 from opensearch_jvector_tpu_torch.ops.adc_kernel import adc_scan
 from opensearch_jvector_tpu_torch.ops.distances import SimilarityFunction
-from opensearch_jvector_tpu_torch.ops.kmeans import train_kmeans_subspaces
+from opensearch_jvector_tpu_torch.ops.kmeans import (
+    lloyd_iters,
+    train_kmeans_subspaces,
+)
 
 
 def default_num_subspaces(dim: int) -> int:
@@ -72,9 +76,10 @@ TRAIN_ITERS = 8  # Lloyd iterations after k-means++ seeding
 TRAIN_SEED = 0
 
 
-def _train_sample(n: int, max_train: int) -> np.ndarray:
+def _train_sample(n: int, max_train: int,
+                  seed: int = TRAIN_SEED) -> np.ndarray:
     """The sorted row sample training reads (the reference's draw)."""
-    return np.sort(np.random.default_rng(TRAIN_SEED).choice(
+    return np.sort(np.random.default_rng(seed).choice(
         n, max_train, replace=False))
 
 
@@ -110,6 +115,38 @@ def train_pq(
     gen = torch.Generator(device=vectors.device).manual_seed(TRAIN_SEED)
     codebooks = train_kmeans_subspaces(x_sub, k, TRAIN_ITERS, gen)
     return ProductQuantization(codebooks=codebooks, center=center)
+
+
+def refine_pq(
+    pq: ProductQuantization,
+    vectors: torch.Tensor | np.ndarray,  # [n, d] float32
+    simf: SimilarityFunction,
+    iters: int = 2,
+    max_train: int = 131072,
+    seed: int = 0,
+) -> ProductQuantization:
+    """Codebook refinement: `iters` Lloyd iterations seeded from `pq`'s
+    codebooks over at most `max_train` rows (the reference's draw), so a
+    merge adapts the leading segment's codebooks to the merged rows
+    instead of reusing them verbatim or training afresh.
+
+    As in `train_pq`, a numpy (host) corpus is sampled on the host and only
+    the sample is uploaded to the codebooks' device, so its center is the
+    sample mean; a tensor's center is the mean of all its rows."""
+    n, d = vectors.shape
+    m, _, dsub = pq.codebooks.shape
+    if isinstance(vectors, np.ndarray):
+        if n > max_train:
+            vectors = vectors[_train_sample(n, max_train, seed)]
+        vectors = torch.from_numpy(np.ascontiguousarray(
+            vectors, np.float32)).to(pq.codebooks.device)
+    x, center = _preprocess(vectors.float(), simf)
+    if x.shape[0] > max_train:
+        x = x[torch.as_tensor(_train_sample(n, max_train, seed),
+                              device=x.device)]
+    x_sub = x.reshape(-1, m, dsub).transpose(0, 1).contiguous()
+    return ProductQuantization(
+        codebooks=lloyd_iters(x_sub, pq.codebooks, iters), center=center)
 
 
 DECODE_ROWS = 1 << 18  # rows per decode step

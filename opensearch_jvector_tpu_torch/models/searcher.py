@@ -20,8 +20,8 @@ Score providers (the approximate phase), chosen by what `search` is given:
 The two PQ providers return approximate scores: their callers rerank
 (the on_disk tier on the host) or use them as they are (graph build).
 The device rerank of PQ candidates against fp32 rows, the Hamming and
-NVQ providers and the hierarchy entry stage wait for ROADMAP queue 1
-items 9-10.
+NVQ providers and the hierarchy entry stage wait (ROADMAP queue 1,
+"on_disk remnants" and "Other quantizers").
 
 Counters follow `SearchResult`: nodes scored (visited), nodes expanded,
 nodes reranked (always 0 here: no provider reranks on the device yet).
@@ -267,7 +267,7 @@ def search(
         if vectors is not None:
             raise NotImplementedError(
                 "the device rerank of PQ candidates against fp32 rows is "
-                "not ported yet (ROADMAP queue 1 item 10)")
+                'not ported yet (ROADMAP queue 1, "on_disk remnants")')
         if pq_decoded is not None:
             score = pq_decoded_provider(queries, pq_decoded, simf)
         else:

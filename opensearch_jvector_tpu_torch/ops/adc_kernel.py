@@ -39,6 +39,7 @@ else, so a run can show that its search path went through them.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -177,11 +178,13 @@ def adc_scan(luts: torch.Tensor, codes: torch.Tensor,
             out.data_ptr(), q, m, k, n, group, _score_mode(simf), stream)
     if err != 0:
         raise RuntimeError(f"adc_scan: kernel launch failed, cudaError {err}")
-    adc_scan.launches += 1
+    with _COUNT_LOCK:  # searches and merges launch from several threads
+        adc_scan.launches += 1
     return out
 
 
 adc_scan.launches = 0
+_COUNT_LOCK = threading.Lock()
 
 
 def prep_tables(luts: torch.Tensor, group: int) -> torch.Tensor:

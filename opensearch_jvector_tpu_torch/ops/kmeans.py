@@ -1,7 +1,7 @@
 """k-means++ / Lloyd clustering — the PQ codebook trainer.
 
 Port of `opensearch_jvector_tpu/ops/kmeans.py` (plain k-means; the
-anisotropic variant waits, ROADMAP queue 1 item 9). Subspaces are a leading
+anisotropic variant waits, ROADMAP queue 1, "Other quantizers"). Subspaces are a leading
 batch dimension [M, n, dsub] instead of a `vmap`. Random numbers come from a
 `torch.Generator`, so seeds do not reproduce the reference's `jax.random`
 bits: trained codebooks are compared by reconstruction error, not equality.
@@ -60,6 +60,20 @@ def _lloyd_iter(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
                        centroids).to(x.dtype)
 
 
+def lloyd_iters(x_sub: torch.Tensor, centroids: torch.Tensor,
+                iters: int) -> torch.Tensor:
+    """`iters` Lloyd steps over [M, n, dsub] from `centroids` [M, k, dsub],
+    a few subspaces at a time so the distance slab stays bounded."""
+    msub, n, _ = x_sub.shape
+    step = max(1, LLOYD_SLAB_BYTES // max(1, n * centroids.shape[1] * 4))
+    for _ in range(iters):
+        centroids = torch.cat([
+            _lloyd_iter(x_sub[s: s + step], centroids[s: s + step])
+            for s in range(0, msub, step)
+        ])
+    return centroids
+
+
 def train_kmeans_subspaces(
     x_sub: torch.Tensor, k: int, iters: int = 8,
     gen: torch.Generator | None = None,
@@ -67,12 +81,4 @@ def train_kmeans_subspaces(
     """Per-subspace codebook training: [M, n, dsub] -> [M, k, dsub]."""
     if gen is None:
         gen = torch.Generator(device=x_sub.device).manual_seed(0)
-    centroids = _kmeanspp_init(x_sub, k, gen)
-    msub, n, _ = x_sub.shape
-    step = max(1, LLOYD_SLAB_BYTES // max(1, n * k * 4))
-    for _ in range(iters):
-        centroids = torch.cat([
-            _lloyd_iter(x_sub[s: s + step], centroids[s: s + step])
-            for s in range(0, msub, step)
-        ])
-    return centroids
+    return lloyd_iters(x_sub, _kmeanspp_init(x_sub, k, gen), iters)

@@ -27,6 +27,7 @@ can show that its search path went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -129,8 +130,10 @@ def decode_scan(q_c: torch.Tensor, codes: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"decode_scan: kernel launch failed, cudaError "
                            f"{err}")
-    decode_scan.launches += 1
+    with _COUNT_LOCK:  # searches launch from several threads
+        decode_scan.launches += 1
     return out
 
 
 decode_scan.launches = 0
+_COUNT_LOCK = threading.Lock()

@@ -344,3 +344,100 @@ def test_on_disk_codes_only_on_card_matches_cpu(card, corpus, tmp_path,
                               torch.from_numpy(vectors), 10,
                               SimilarityFunction.EUCLIDEAN)
     assert recall_at_k(got.doc_ids[:64], truth, 10) >= 0.95
+
+
+def test_adc_scan_valid_mask_follows_a_delete_on_card(card, corpus, tmp_path):
+    """`delete` changes a segment's tombstones at run time: the next scan
+    launches the kernel with the new fused `valid` mask, the deleted docs
+    are gone, and the CPU agrees on the same directory."""
+    vectors, queries = corpus
+    idx = VectorIndex(tmp_path, DiskAnnConfig(dim=32, num_pq_subspaces=16),
+                      device=card)
+    idx.add_batch(np.arange(3000), vectors[:3000])
+    idx.flush()
+    sc = SearchConfig(k=10)
+    first = idx.search(queries, sc)
+    doomed = np.unique(first.doc_ids[:, :3])
+    reader = idx._reader(idx.segment_names[0])
+    assert reader._accept_cache[1] is None  # no tombstones: the live mask
+    launches = adc_scan.launches
+    idx.delete(doomed)
+    assert idx.has_deletes
+    got = idx.search(queries, sc)
+    assert adc_scan.launches == launches + 1
+    mask = reader._accept_cache[1]
+    assert mask.is_cuda and int((~mask[:3000]).sum()) == doomed.size
+    assert not np.isin(got.doc_ids, doomed).any()
+    assert (got.doc_ids >= 0).all()
+    idx.search(queries, sc)
+    assert reader._accept_cache[1] is mask  # kept until the tombstones change
+    cpu = VectorIndex(tmp_path, device="cpu").search(queries, sc)
+    assert recall_at_k(got.doc_ids, cpu.doc_ids, 10) >= 0.99
+    keep = np.setdiff1d(np.arange(3000), doomed)
+    truth = keep[ground_truth_topk(torch.from_numpy(queries),
+                                   torch.from_numpy(vectors[keep]), 10,
+                                   SimilarityFunction.EUCLIDEAN)]
+    assert recall_at_k(got.doc_ids, truth, 10) >= 0.95
+
+
+def test_delete_merge_and_search_from_two_threads_on_card(card, corpus,
+                                                          tmp_path):
+    """A background merge (torch ops from the merge pool's thread) while
+    two threads search (both kernels' launchers share the default stream
+    and the launch counters): every answer is valid for the segment set it
+    started from, no deleted doc comes back, and the counters add up."""
+    import threading
+
+    vectors, queries = corpus
+    idx = VectorIndex(tmp_path, DiskAnnConfig(dim=32, num_pq_subspaces=16),
+                      device=card)
+    per = 1200  # above the minimum batch: PQ segments, so the scan tier
+    for f in range(4):
+        idx.add_batch(np.arange(f * per, (f + 1) * per),
+                      vectors[f * per: (f + 1) * per])
+        idx.flush()
+    doomed = np.arange(0, 4 * per, 40)
+    idx.delete(doomed)
+    sc = SearchConfig(k=10)
+    idx.search(queries, sc)  # opens the readers
+    keep = np.setdiff1d(np.arange(5 * per), doomed)
+    truth = keep[ground_truth_topk(torch.from_numpy(queries),
+                                   torch.from_numpy(vectors[keep]), 10,
+                                   SimilarityFunction.EUCLIDEAN)]
+    rounds, failures, scans = 12, [], [0, 0]
+    start = adc_scan.launches
+
+    def searcher(slot):
+        try:
+            for _ in range(rounds):
+                n_seg = len(idx.segment_names)
+                res = idx.search(queries, sc)
+                scans[slot] += 1
+                assert not np.isin(res.doc_ids, doomed).any()
+                assert (res.doc_ids >= 0).all()
+                assert n_seg in (2, 5)
+        except BaseException as e:  # noqa: BLE001 - reported by the test
+            failures.append(e)
+
+    idx.add_batch(np.arange(4 * per, 5 * per), vectors[4 * per: 5 * per])
+    idx.flush()  # the fifth segment: a merge of four starts
+    threads = [threading.Thread(target=searcher, args=(s,)) for s in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    idx.await_merges(timeout=600)
+    assert not failures, failures
+    assert scans == [rounds, rounds]
+    # one launch per scanned segment and search: between 2 and 5 each
+    launched = adc_scan.launches - start
+    assert 2 * 2 * rounds <= launched <= 5 * 2 * rounds
+    assert sorted(idx.segment_names) == ["merged_4segs_m1",
+                                         "seg_000004_1200"]
+    assert idx.doc_count() == keep.size and not idx.has_deletes
+    got = idx.search(queries, sc)
+    assert recall_at_k(got.doc_ids, truth, 10) >= 0.95
+    cpu = VectorIndex(tmp_path, device="cpu").search(queries, sc)
+    assert recall_at_k(got.doc_ids, cpu.doc_ids, 10) >= 0.99
+    idx.close()
+    assert idx._pins == {} and idx._retired == set()

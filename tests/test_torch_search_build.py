@@ -207,6 +207,7 @@ def _check_invariants(graph, n):
     for i in range(graph.capacity):
         row = adj[i][adj[i] >= 0]
         assert i not in row  # no self-loops
+        assert np.unique(row).size == row.size  # no duplicate neighbour
         assert live[row].all()
         assert (adj[i, deg[i]:] == -1).all() and row.size == deg[i]
     seen = {graph.entry}
