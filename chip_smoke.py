@@ -51,6 +51,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      phase 7's index directory): delete a tenth of the docs, search under both
      breakers, force_merge to one on_disk segment whose row file holds the
      used rows, search again under both.
+  9. the other quantizers, anisotropic PQ and the hierarchy layer, each a
+     fresh index over the latent-16 corpus, k=10. 9a, NVQ
+     (quantization_type "nvq+pq"): NVQ's fit + encode timed alone on one
+     flush's rows, then 1,000,000 rows in flushes of 250,000, 250,000
+     (the NVQ decoded-scan tier) and 500,000 (beam tier: auxiliary-PQ
+     provider, rerank against NVQ-decoded rows); the bytes each segment
+     holds on the card against fp32 rows; recall and ms/query; a delete of
+     a twentieth of the docs, a force_merge (NVQ and PQ recomputed from the
+     decoded rows), a reopen. 9b, scalar ("1bit", "4bit"): one flush of
+     500,000 rows each (beam tier, Hamming provider, fp32 rerank), recall
+     and ms/query at overquery 5, 10 and 20; held to exact fp32 scores,
+     a rerank that ran and recall that rises with overquery (one bit a
+     dimension is reported, not held to the target). 9c, anisotropic PQ +
+     hierarchy over unit-norm rows, inner product: flushes of 250,000
+     (scan tier: adc_scan over anisotropic codes) and 500,000 (beam tier
+     after the upper layer's descent). Beam-tier recall is held at the
+     default ef_search where that reaches the target, else at BEAM_EF,
+     and both are reported. Profiles of one 512-query batch on 9a's beam
+     segment and on 9b's 4-bit index.
 The in_memory corpus is the latent-16 "sift-like" generator of bench.py
 (make_data), the GIST-shaped one the latent-32 960-d generator of
 bench.py's gist section, both made with numpy from --seed. The last two
@@ -105,6 +124,20 @@ DELETE_SHARE, ADD_SHARE, UPDATE_SHARE = 10, 4, 5
 # reported, and at this ef_search, held to the target; one flush of the
 # same live rows into a fresh index is searched the same way beside them
 BEAM_EF = 200
+# phase 9a: NVQ flushes of capacities 2^18, 2^18 (decoded-scan tier) and
+# 2^19 (beam tier); a twentieth of the docs deleted before the merge
+NVQ_FLUSHES = (250_000, 250_000, 500_000)
+NVQ_DELETE_SHARE = 20
+# phase 9b: one 2^19 flush per scalar mode, searched at these overquery
+# factors
+SCALAR_N = 500_000
+SCALAR_MODES = ("1bit", "4bit")
+SCALAR_OVERQUERY = (5, 10, 20)
+# phase 9c: capacities 2^18 (scan tier) and 2^19 (beam tier). On this
+# corpus (intrinsic dimension about 14) a score threshold of 0.2 resolves to
+# eta = 1, which is plain PQ; 0.4 gives eta about 2.5
+ANISO_FLUSHES = (250_000, 500_000)
+ANISO_THRESHOLD = 0.4
 ON_DISK_SPANS = ("approximate", "rerank_gather", "rerank_score")
 # H100 SXM peaks (NVIDIA data sheet, 700 W): the kernels' bounds
 PEAK_BYTES_S = 3.35e12
@@ -452,15 +485,9 @@ def live_truth(queries, rows, live_ids, k):
     return live_ids[gt]
 
 
-def check_live_answers(what, ids, scores, queries, rows_dev, dead, truth, k):
-    """Hold a search's answers to the live doc set -> recall@k: no id of
-    `dead`, every score the exact euclidean score of the doc's newest
-    vector `rows_dev[doc]` (a superseded copy would score otherwise), and
-    recall against `truth` at the target."""
-    from opensearch_jvector_tpu_torch.utils.ground_truth import recall_at_k
-
-    if np.isin(ids, dead).any():
-        raise AssertionError(f"{what}: a deleted doc id came back")
+def check_exact_scores(what, ids, scores, queries, rows_dev) -> None:
+    """Every returned score is the exact euclidean score of its doc's
+    vector `rows_dev[doc]` (rtol 1e-3, atol 1e-6)."""
     q = torch.as_tensor(queries, device="cuda")
     got = torch.as_tensor(scores, device="cuda")
     for s in range(0, ids.shape[0], BATCH):
@@ -470,10 +497,353 @@ def check_live_answers(what, ids, scores, queries, rows_dev, dead, truth, k):
                               atol=1e-6):
             raise AssertionError(f"{what}: a returned score is not the "
                                  f"score of the doc's newest vector")
+
+
+def check_live_answers(what, ids, scores, queries, rows_dev, dead, truth, k):
+    """Hold a search's answers to the live doc set -> recall@k: no id of
+    `dead`, every score the exact euclidean score of the doc's newest
+    vector `rows_dev[doc]` (a superseded copy would score otherwise), and
+    recall against `truth` at the target."""
+    from opensearch_jvector_tpu_torch.utils.ground_truth import recall_at_k
+
+    if np.isin(ids, dead).any():
+        raise AssertionError(f"{what}: a deleted doc id came back")
+    check_exact_scores(what, ids, scores, queries, rows_dev)
     recall = recall_at_k(ids, truth, k)
     if recall < RECALL_TARGET:
         raise AssertionError(f"{what}: recall@{k} {recall} < {RECALL_TARGET}")
     return recall
+
+
+def flush_rows(index, rows, lo: int, count: int):
+    """add_batch + flush of rows[lo: lo + count] (doc id == row) ->
+    (segment name, seconds, quantizer ms, graph build ms)."""
+    from opensearch_jvector_tpu_torch.api.stats import Counter
+
+    keys = (Counter.KNN_QUANTIZATION_TRAINING_TIME.value,
+            Counter.KNN_GRAPH_BUILD_TIME.value)
+    before = index.stats.snapshot()
+    t0 = time.monotonic()
+    index.add_batch(np.arange(lo, lo + count), rows[lo: lo + count])
+    name = index.flush()
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    after = index.stats.snapshot()
+    return (name, dt) + tuple(after[k] - before[k] for k in keys)
+
+
+def counter_deltas(index, fn, *counters):
+    """Run fn() -> (its result, the deltas of `counters` over the call)."""
+    before = index.stats.snapshot()
+    out = fn()
+    after = index.stats.snapshot()
+    return out, [after[c.value] - before[c.value] for c in counters]
+
+
+def search_held(what, index, queries, truth, sc, deep, dead=None):
+    """Search at the default ef_search and at BEAM_EF, report both, and
+    hold the default where it reaches the target, else BEAM_EF -> (ids,
+    scores, SearchConfig) of the held one."""
+    from opensearch_jvector_tpu_torch.utils.ground_truth import recall_at_k
+
+    runs = {}
+    for cfg in (sc, deep):
+        ids, scores, wall = search_all(index, queries, cfg)
+        if dead is not None and np.isin(ids, dead).any():
+            raise AssertionError(f"{what}: a deleted doc id came back")
+        runs[cfg.resolved_ef()] = (recall_at_k(ids, truth, K), wall, ids,
+                                   scores, cfg)
+    log(f"  search {what}: " + "; ".join(
+        f"ef_search {ef}: {1000 * run[1] / len(queries):.5f} ms/query "
+        f"batched, recall@{K} {run[0]:.4f}" for ef, run in runs.items()))
+    held = next((r for r in runs.values() if r[0] >= RECALL_TARGET), None)
+    if held is None:
+        raise AssertionError(f"{what}: recall@{K} below {RECALL_TARGET} at "
+                             f"ef_search {list(runs)}")
+    return held[2:]
+
+
+def phase_9a(seed: int, n_queries: int, launches: dict) -> None:
+    """NVQ (nvq+pq), in_memory: see the module docstring."""
+    from opensearch_jvector_tpu_torch.api.config import (
+        DiskAnnConfig,
+        SearchConfig,
+    )
+    from opensearch_jvector_tpu_torch.index.index import VectorIndex
+    from opensearch_jvector_tpu_torch.models import nvq as nvq_mod
+    from opensearch_jvector_tpu_torch.ops.adc_kernel import adc_scan
+    from opensearch_jvector_tpu_torch.ops.distances import SimilarityFunction
+    from opensearch_jvector_tpu_torch.ops.pq_scan_kernel import decode_scan
+    from opensearch_jvector_tpu_torch.utils.ground_truth import (
+        ground_truth_topk,
+    )
+
+    n = sum(NVQ_FLUSHES)
+    rng = np.random.default_rng(seed + 90)
+    vectors, queries, _ = make_data(rng, n, n_queries, DIM)
+    cfg = DiskAnnConfig(dim=DIM, quantization_type="nvq+pq")
+    sc, deep = SearchConfig(k=K), SearchConfig(k=K, ef_search=BEAM_EF)
+    log(f"[9a/9] NVQ (nvq+pq, {cfg.nvq_num_subvectors} subvectors): {n} x "
+        f"{DIM} in flushes of {NVQ_FLUSHES}, {n_queries} queries, k={K}")
+    # NVQ alone on one flush's rows
+    block = torch.as_tensor(vectors[: NVQ_FLUSHES[0]], device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    nvq = nvq_mod.train_nvq(block, cfg.nvq_num_subvectors)
+    torch.cuda.synchronize()
+    fit_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    mse = float(nvq_mod.reconstruction_mse(nvq, block))
+    decode_s = time.monotonic() - t0
+    log(f"  NVQ fit + encode of {block.shape[0]} rows alone: {fit_s:.3f} s "
+        f"(35 grid points); decode + error {decode_s:.3f} s; "
+        f"reconstruction MSE {mse:.3e} against a row variance of "
+        f"{float(block.var()):.3e}")
+    if not np.isfinite(mse) or mse > 1e-3 * float(block.var()):
+        raise AssertionError(f"NVQ reconstruction MSE {mse}")
+    del block, nvq
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nvq_") as root:
+        index = VectorIndex(root, cfg, device="cuda")
+        lo, held_total = 0, 0
+        for count in NVQ_FLUSHES:
+            name, dt, quant_ms, graph_ms = flush_rows(index, vectors, lo,
+                                                      count)
+            lo += count
+            seg = index._reader(name).seg
+            if (seg.vectors is not None or seg.nvq is None
+                    or (Path(root) / name / "rows.f32").exists()):
+                raise AssertionError("an NVQ segment kept fp32 rows")
+            parts = {"nvq bytes": seg.nvq.bytes_, "nvq params":
+                     seg.nvq.params, "pq codes": seg.pqv.codes}
+            held = sum(t.numel() * t.element_size() for t in parts.values())
+            held_total += held
+            cap = seg.capacity()
+            log(f"  flush {name}: {count} vectors in {dt:.2f} s = "
+                f"{count / dt:.0f} vec/s (PQ + NVQ train+encode {quant_ms} "
+                f"ms, graph build {graph_ms} ms), capacity {cap} "
+                f"({'beam' if cap > 1 << 18 else 'NVQ decoded-scan'} tier); "
+                f"on the card: " + ", ".join(
+                    f"{k} {t.numel() * t.element_size()} B"
+                    for k, t in parts.items())
+                + f" = {held} B against {cap * DIM * 4} B of fp32 rows")
+        log(f"  {n} rows hold {held_total} B of codes and parameters on the "
+            f"card against {n * DIM * 4} B as fp32; peak device memory of "
+            f"the three flushes {torch.cuda.max_memory_allocated()} B")
+        gt = ground_truth_topk(torch.as_tensor(queries, device="cuda"),
+                               torch.as_tensor(vectors, device="cuda"), K,
+                               SimilarityFunction.EUCLIDEAN)
+        torch.cuda.reset_peak_memory_stats()
+        index.search(queries[:BATCH], sc)  # warm: the decoded caches
+        adc_scan.launches = decode_scan.launches = 0
+        search_held("3 NVQ segments (2 scanned, 1 beam)", index, queries, gt,
+                    sc, deep)
+        launches["nvq"] = kernel_counts(adc_scan, decode_scan)
+        log(f"  peak device memory while searching (the two scan segments' "
+            f"bf16 decoded caches included): "
+            f"{torch.cuda.max_memory_allocated()} B")
+        beam = index._reader(name)
+        res = beam.search(queries[:BATCH], sc)
+        log(f"  the beam segment alone, one {BATCH}-query batch: expanded "
+            f"{res.expanded}, reranked {res.reranked} (NVQ decode_rows)")
+        if res.expanded <= 0 or res.reranked <= 0:
+            raise AssertionError("the NVQ beam segment did not expand and "
+                                 "rerank")
+        profile_batch(beam, queries[:BATCH], sc)
+
+        doomed = rng.choice(n, n // NVQ_DELETE_SHARE, replace=False)
+        keep = np.setdiff1d(np.arange(n), doomed)
+        truth = live_truth(queries, vectors, keep, K)
+        index.delete(doomed)
+        index.time_merge_stages = True
+        t0 = time.monotonic()
+        merged = index.force_merge()
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        seg = index._reader(merged).seg
+        log(f"  delete of {doomed.size} docs, force_merge -> {merged} in "
+            f"{dt:.2f} s (" + ", ".join(
+                f"{k} {v:.2f} s" for k, v in index.last_merge_timings.items())
+            + f"): capacity {seg.capacity()}, used ordinals "
+            f"{seg.docmap.num_ordinals}, NVQ and PQ recomputed from the "
+            f"decoded rows")
+        if (index.segment_names != [merged] or index.has_deletes
+                or seg.nvq is None or seg.vectors is not None
+                or seg.docmap.num_ordinals != keep.size):
+            raise AssertionError("the NVQ merge left another segment")
+        ids, _, held = search_held("after the merge (one beam segment)",
+                                   index, queries, truth, sc, deep, doomed)
+        index.close()
+        again = VectorIndex(root, device="cuda")
+        same = bool((again.search(queries[:BATCH], held).doc_ids
+                     == ids[:BATCH]).all())
+        log(f"  reopen: {again.segment_names}, identical top-{K} ids for "
+            f"{BATCH} queries: {same}")
+        again.close()
+        if not same:
+            raise AssertionError("the reopened NVQ index differs")
+    del vectors, queries, gt, truth
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_9b(seed: int, launches: dict) -> None:
+    """Scalar 1-bit and 4-bit, in_memory: see the module docstring."""
+    from opensearch_jvector_tpu_torch.api.config import (
+        DiskAnnConfig,
+        SearchConfig,
+    )
+    from opensearch_jvector_tpu_torch.api.stats import Counter
+    from opensearch_jvector_tpu_torch.index.index import VectorIndex
+    from opensearch_jvector_tpu_torch.ops.adc_kernel import adc_scan
+    from opensearch_jvector_tpu_torch.ops.distances import SimilarityFunction
+    from opensearch_jvector_tpu_torch.ops.pq_scan_kernel import decode_scan
+    from opensearch_jvector_tpu_torch.utils.ground_truth import (
+        ground_truth_topk,
+        recall_at_k,
+    )
+
+    rng = np.random.default_rng(seed + 91)
+    vectors, queries, _ = make_data(rng, SCALAR_N, VAMANA_QUERIES, DIM)
+    rows_dev = torch.as_tensor(vectors, device="cuda")
+    gt = ground_truth_topk(torch.as_tensor(queries, device="cuda"), rows_dev,
+                           K, SimilarityFunction.EUCLIDEAN)
+    log(f"[9b/9] scalar quantization {SCALAR_MODES}: {SCALAR_N} x {DIM} in "
+        f"one flush each, {VAMANA_QUERIES} queries, k={K}, overquery "
+        f"{SCALAR_OVERQUERY}")
+    adc_scan.launches = decode_scan.launches = 0
+    for quant in SCALAR_MODES:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_sq_") as root:
+            index = VectorIndex(root, DiskAnnConfig(
+                dim=DIM, quantization_type=quant), device="cuda")
+            name, dt, quant_ms, graph_ms = flush_rows(index, vectors, 0,
+                                                      SCALAR_N)
+            seg = index._reader(name).seg
+            log(f"  {quant} flush {name}: {SCALAR_N} vectors in {dt:.2f} s "
+                f"= {SCALAR_N / dt:.0f} vec/s (threshold training + encode "
+                f"{quant_ms} ms, graph build {graph_ms} ms), "
+                f"{seg.scalar_codes.shape[1]} code bytes a row, capacity "
+                f"{seg.capacity()} (beam tier)")
+            ladder = []
+            for over in SCALAR_OVERQUERY:
+                cfg = SearchConfig(k=K, overquery_factor=over)
+                index.search(queries[:BATCH], cfg)  # warm
+                (ids, scores, wall), (reranked, expanded) = counter_deltas(
+                    index, lambda: search_all(index, queries, cfg),
+                    Counter.KNN_QUERY_RERANKED_COUNT,
+                    Counter.KNN_QUERY_EXPANDED_NODES)
+                check_exact_scores(f"{quant} overquery {over}", ids, scores,
+                                   queries, rows_dev)
+                ladder.append(recall_at_k(ids, gt, K))
+                log(f"  {quant} overquery {over}: "
+                    f"{1000 * wall / len(queries):.5f} ms/query batched, "
+                    f"recall@{K} {ladder[-1]:.4f}, expanded {expanded}, "
+                    f"reranked {reranked}, every score the doc's exact fp32 "
+                    f"score")
+                if reranked <= 0 or expanded <= 0:
+                    raise AssertionError(f"{quant}: the Hamming beam search "
+                                         f"or its rerank did not run")
+            reached = [o for o, r in zip(SCALAR_OVERQUERY, ladder)
+                       if r >= RECALL_TARGET]
+            log(f"  {quant}: smallest overquery of {SCALAR_OVERQUERY} that "
+                f"reaches recall@{K} {RECALL_TARGET}: "
+                f"{reached[0] if reached else 'none'}")
+            if ladder != sorted(ladder) or (ladder[-1] <= ladder[0]
+                                            and ladder[0] < 0.999):
+                raise AssertionError(f"{quant}: recall does not rise with "
+                                     f"overquery: {ladder}")
+            if quant == "4bit":
+                profile_batch(index, queries[:BATCH], SearchConfig(k=K))
+            index.close()
+            del index, seg
+            gc.collect()
+            torch.cuda.empty_cache()
+    launches["scalar"] = kernel_counts(adc_scan, decode_scan)
+    if any(launches["scalar"].values()):
+        raise AssertionError("a scalar search launched a PQ kernel")
+
+
+def phase_9c(seed: int, launches: dict, plain_pq_ms: int) -> None:
+    """Anisotropic PQ + hierarchy, inner product: see the module
+    docstring. `plain_pq_ms` is phase 4's plain PQ train+encode time for a
+    flush of the same size."""
+    from opensearch_jvector_tpu_torch.api.config import (
+        DiskAnnConfig,
+        SearchConfig,
+    )
+    from opensearch_jvector_tpu_torch.api.stats import Counter
+    from opensearch_jvector_tpu_torch.index.index import VectorIndex
+    from opensearch_jvector_tpu_torch.ops.adc_kernel import adc_scan
+    from opensearch_jvector_tpu_torch.ops.distances import SimilarityFunction
+    from opensearch_jvector_tpu_torch.ops.pq_scan_kernel import decode_scan
+    from opensearch_jvector_tpu_torch.utils.ground_truth import (
+        ground_truth_topk,
+    )
+
+    n = sum(ANISO_FLUSHES)
+    rng = np.random.default_rng(seed + 92)
+    vectors, queries, _ = make_data(rng, n, VAMANA_QUERIES, DIM)
+    # unit-norm rows, as embedding corpora served by inner product are
+    vectors /= np.linalg.norm(vectors, axis=1, keepdims=True)
+    queries /= np.linalg.norm(queries, axis=1, keepdims=True)
+    dot = SimilarityFunction.DOT_PRODUCT
+    cfg = DiskAnnConfig(dim=DIM, similarity=dot, hierarchy_enabled=True,
+                        pq_anisotropic_threshold=ANISO_THRESHOLD)
+    sc, deep = SearchConfig(k=K), SearchConfig(k=K, ef_search=BEAM_EF)
+    log(f"[9c/9] anisotropic PQ (threshold {ANISO_THRESHOLD}) + hierarchy, "
+        f"inner product over unit-norm rows: {n} x {DIM} in flushes of "
+        f"{ANISO_FLUSHES}, {VAMANA_QUERIES} queries, k={K}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_aniso_") as root:
+        index = VectorIndex(root, cfg, device="cuda")
+        lo = 0
+        for count in ANISO_FLUSHES:
+            name, dt, quant_ms, graph_ms = flush_rows(index, vectors, lo,
+                                                      count)
+            lo += count
+            seg = index._reader(name).seg
+            eta = seg.pqv.pq.aniso_eta
+            members = int((seg.graph.upper_adjacency >= 0).any(1).sum())
+            log(f"  flush {name}: {count} vectors in {dt:.2f} s = "
+                f"{count / dt:.0f} vec/s; resolved eta {eta}, anisotropic "
+                f"PQ train+encode {quant_ms} ms"
+                + (f" (phase 4's plain PQ on a flush of this size: "
+                   f"{plain_pq_ms} ms)" if count == ANISO_FLUSHES[0] else "")
+                + f", graph build {graph_ms} ms; capacity {seg.capacity()}, "
+                f"upper layer {members} members of width "
+                f"{seg.graph.upper_adjacency.shape[1]} (4*sqrt(n) = "
+                f"{int(4 * np.sqrt(count))})")
+            if eta is None or eta <= 1.0:
+                raise AssertionError(f"the codebooks are not anisotropic: "
+                                     f"eta {eta}")
+            if abs(members - int(4 * np.sqrt(count))) > 1:
+                raise AssertionError(f"upper layer of {members} members")
+        gt = ground_truth_topk(torch.as_tensor(queries, device="cuda"),
+                               torch.as_tensor(vectors, device="cuda"), K,
+                               dot)
+        index.search(queries[:BATCH], sc)  # warm
+        adc_scan.launches = decode_scan.launches = 0
+        search_held("1 scan segment + 1 beam segment with the upper layer",
+                    index, queries, gt, sc, deep)
+        launches["aniso_hierarchy"] = kernel_counts(adc_scan, decode_scan)
+        _, (expanded, base) = counter_deltas(
+            index, lambda: search_all(index, queries, sc),
+            Counter.KNN_QUERY_EXPANDED_NODES,
+            Counter.KNN_QUERY_EXPANDED_BASE_LAYER_NODES)
+        log(f"  expansions a query on the beam segment at ef_search "
+            f"{sc.resolved_ef()}: upper layer "
+            f"{(expanded - base) / len(queries):.2f}, base layer "
+            f"{base / len(queries):.2f}; launches "
+            f"{launches['aniso_hierarchy']}")
+        if not expanded > base > 0:
+            raise AssertionError("the upper layer was not descended")
+        if launches["aniso_hierarchy"]["adc_scan"] <= 0:
+            raise AssertionError("the anisotropic scan segment never "
+                                 "launched adc_scan")
+        index.close()
+    del vectors, queries, gt
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -520,7 +890,7 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    log(f"[1/8] device: {kind} (torch {torch.__version__}, "
+    log(f"[1/9] device: {kind} (torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} visible)")
     log(smi)
 
@@ -529,7 +899,7 @@ def main() -> int:
     names = ("adc_scan", "decode_scan", "vector_store")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(_kernels.build, names)))
-    log(f"[2/8] build: {', '.join(p.name for p in libs.values())} in "
+    log(f"[2/9] build: {', '.join(p.name for p in libs.values())} in "
         f"{time.monotonic() - t0:.1f} s (compilers started together)")
     for name in names:
         if name not in _kernels.BUILD_LOGS:
@@ -539,7 +909,7 @@ def main() -> int:
     log(f"  sass: {hmma_count(libs['decode_scan'])}")
 
     # ---- 3. kernels vs plain ----------------------------------------------
-    log("[3/8] kernels vs plain PyTorch on the card")
+    log("[3/9] kernels vs plain PyTorch on the card")
     m = default_num_subspaces(DIM)  # the subspaces the flushes train
     adc_rec = check_adc_scan(BATCH, m, 256, 1 << 18, args.seed, reps=20,
                              plain_reps=3, library=True, fused=True)
@@ -564,7 +934,7 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     vectors, queries, basis = make_data(rng, args.n, args.queries, DIM)
     sc = SearchConfig(k=K)
-    log(f"[4/8] in_memory path: {args.n} x {DIM} in {FLUSHES} flushes, "
+    log(f"[4/9] in_memory path: {args.n} x {DIM} in {FLUSHES} flushes, "
         f"{args.queries} queries in batches of {BATCH}, k={K}")
     torch.cuda.reset_peak_memory_stats()
     launches = {}
@@ -573,6 +943,7 @@ def main() -> int:
     root = mem_dir.name
     index = VectorIndex(root, DiskAnnConfig(dim=DIM), device="cuda")
     bounds = np.linspace(0, args.n, FLUSHES + 1).astype(int)
+    plain_pq_ms = None
     for lo, hi in zip(bounds[:-1], bounds[1:]):
         before = index.stats.snapshot()
         t0 = time.monotonic()
@@ -587,6 +958,7 @@ def main() -> int:
         log(f"  flush {name}: {hi - lo} vectors in {dt:.2f} s = "
             f"{(hi - lo) / dt:.0f} vec/s (PQ train+encode {pq_ms} ms, "
             f"graph build {build_ms} ms)")
+        plain_pq_ms = pq_ms if plain_pq_ms is None else plain_pq_ms
 
     index.search(queries[: BATCH], sc)  # warm: segment loads
     adc_scan.launches = decode_scan.launches = 0
@@ -615,7 +987,7 @@ def main() -> int:
     reopened = VectorIndex(root, device="cuda")
     again = reopened.search(queries[: BATCH], sc).doc_ids
     same = bool((again == ids[: BATCH]).all())
-    log(f"[5/8] reopen from commits.json: {len(reopened.segment_names)} "
+    log(f"[5/9] reopen from commits.json: {len(reopened.segment_names)} "
         f"segments, identical top-{K} ids for {BATCH} "
         f"queries: {same}")
     if not same:
@@ -636,7 +1008,7 @@ def main() -> int:
         grng = np.random.default_rng(args.seed + 41)
         t0 = time.monotonic()
         gv, gq = make_gist(grng, GIST_N, args.queries)
-        log(f"[6/8] on_disk flat GIST1M-shaped: {GIST_N} x {GIST_DIM}, "
+        log(f"[6/9] on_disk flat GIST1M-shaped: {GIST_N} x {GIST_DIM}, "
             f"PQ{GIST_M}, {args.queries} queries in batches of {BATCH}, "
             f"k={K} (data made in {time.monotonic() - t0:.1f} s)")
         gt = ground_truth_topk(torch.as_tensor(gq, device="cuda"),
@@ -769,7 +1141,7 @@ def main() -> int:
     vrng = np.random.default_rng(args.seed + 7)
     n_v = sum(VAMANA_FLUSHES)
     vv, vq, _ = make_data(vrng, n_v, VAMANA_QUERIES, DIM)
-    log(f"[7/8] on_disk vamana: {n_v} x {DIM} in flushes of "
+    log(f"[7/9] on_disk vamana: {n_v} x {DIM} in flushes of "
         f"{VAMANA_FLUSHES}, {VAMANA_QUERIES} queries, k={K}")
     gt = ground_truth_topk(torch.as_tensor(vq, device="cuda"),
                            torch.as_tensor(vv, device="cuda"), K,
@@ -844,7 +1216,7 @@ def main() -> int:
     n_del, n_add = n // DELETE_SHARE, n // ADD_SHARE
     n_upd = n_add // UPDATE_SHARE
     n_new = n_add - n_upd
-    log(f"[8a/8] in_memory deletes and merges on phase 4's index directory: "
+    log(f"[8a/9] in_memory deletes and merges on phase 4's index directory: "
         f"delete {n_del}, then add {n_new} new docs and {n_upd} updates")
     # the default merge policy: tiered, at most 4 segments, 4 a merge
     index = VectorIndex(mem_dir.name, device="cuda")
@@ -1026,7 +1398,7 @@ def main() -> int:
     doomed = np.random.default_rng(args.seed + 9).choice(
         n_v, n_v // DELETE_SHARE, replace=False)
     keep = np.setdiff1d(np.arange(n_v), doomed)
-    log(f"[8b/8] on_disk vamana deletes and force_merge: delete "
+    log(f"[8b/9] on_disk vamana deletes and force_merge: delete "
         f"{doomed.size} of {n_v} docs")
     truth = live_truth(vq, vv, keep, K)
     root = vamana_dir.name
@@ -1097,6 +1469,14 @@ def main() -> int:
     index.close()
     both_breakers("merged")
     vamana_dir.cleanup()
+    del vv, vq, truth
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 9. the other quantizers, anisotropic PQ, the hierarchy layer ----
+    phase_9a(args.seed, args.queries, launches)
+    phase_9b(args.seed, launches)
+    phase_9c(args.seed, launches, plain_pq_ms)
 
     total = {k: sum(v[k] for v in launches.values())
              for k in ("adc_scan", "decode_scan")}

@@ -12,7 +12,10 @@ Port of `opensearch_jvector_tpu/index/merge.py`:
   * PQ codebook reuse: the lead's codebooks are refined by a few Lloyd
     iterations over the merged rows (`refine_pq`) and every row is
     re-encoded; a lead without codebooks trains afresh once the merged
-    size reaches the minimum batch
+    size reaches the minimum batch (with the config's anisotropic weight)
+  * NVQ merges always rebuild, and NVQ is recomputed from the merged rows
+    (decoded from the sources' NVQ bytes); scalar thresholds and codes are
+    recomputed from the merged rows as well
 
 The merged segment's ordinal space is [leading ordinals | appended
 ordinals]; new ordinals start at the lead's USED count, inside the lead's
@@ -26,8 +29,9 @@ and writes the rows to the merged segment's row file, so the corpus never
 reaches the device. A vamana on_disk merge uploads the rows for the build
 (beam candidates scored from the decoded-bf16 cache, prunes on the fp32
 rows) as a vamana on_disk flush does, and a merged capacity at or above
-the quantized-build gate raises like that flush. NVQ and scalar merges
-are not ported and raise NotImplementedError naming their ROADMAP item.
+the quantized-build gate raises like that flush. An on_disk nvq+pq
+segment has no row file (NVQ replaces the rows), so its merge runs on the
+device like an in_memory one, with the decoded-PQ beam source.
 """
 
 from __future__ import annotations
@@ -39,16 +43,23 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from opensearch_jvector_tpu_torch.api.config import QUANT_NONE, DiskAnnConfig
+from opensearch_jvector_tpu_torch.api.config import (
+    QUANT_NONE,
+    QUANT_NVQ,
+    SCALAR_BITS,
+    SCALAR_QUANTS,
+    DiskAnnConfig,
+)
 from opensearch_jvector_tpu_torch.api.stats import STATS, Counter, StatsRegistry
 from opensearch_jvector_tpu_torch.index.docmap import DocMap
 from opensearch_jvector_tpu_torch.index.segment import Segment, write_segment
 from opensearch_jvector_tpu_torch.index.writer import (
     QUANTIZED_BUILD_MIN_CAPACITY,
-    check_config_ported,
     check_quantized_build_gate,
 )
+from opensearch_jvector_tpu_torch.models import nvq as nvq_mod
 from opensearch_jvector_tpu_torch.models import pq as pq_mod
+from opensearch_jvector_tpu_torch.models import scalar as scalar_mod
 from opensearch_jvector_tpu_torch.models.builder import GraphIndexBuilder
 from opensearch_jvector_tpu_torch.models.graph import (
     VamanaGraph,
@@ -64,16 +75,20 @@ MAX_ORDINALS = 2**31 - 1
 
 def _materialize_vectors(seg: Segment, ids: np.ndarray | None = None):
     """fp32 rows of a segment's USED ordinals, or of the ordinals `ids`:
-    a device tensor for in-memory rows, a host array paged from the row
-    store for an on_disk segment. Rows beyond `docmap.num_ordinals` are
-    capacity padding, never real vectors."""
+    a device tensor for in-memory rows and for rows decoded from NVQ, a
+    host array paged from the row store for an on_disk segment. Rows
+    beyond `docmap.num_ordinals` are capacity padding, never real
+    vectors."""
     used = seg.docmap.num_ordinals
     if seg.vectors is not None:
         if ids is None:
             return seg.vectors[:used]
         return seg.vectors[torch.as_tensor(ids, device=seg.vectors.device)]
-    assert seg.row_store is not None
-    return seg.row_store.gather(np.arange(used) if ids is None else ids)
+    if seg.row_store is not None:
+        return seg.row_store.gather(np.arange(used) if ids is None else ids)
+    assert seg.nvq is not None
+    return seg.nvq.decode_rows(torch.as_tensor(
+        np.arange(used) if ids is None else ids, device=seg.nvq.device))
 
 
 def _elect_leading(segments: list[Segment]) -> int:
@@ -106,8 +121,10 @@ class _Merge:
         self.batch_size = batch_size
         self.gate = gate
         self.timings = timings
-        # on_disk merges keep the gathered rows on the host
-        self.host = cfg.mode == "on_disk"
+        # on_disk merges keep the gathered rows on the host; NVQ segments
+        # have no host rows in either mode
+        self.on_disk = cfg.mode == "on_disk"
+        self.host = self.on_disk and cfg.quantization_type != QUANT_NVQ
         self.flat = cfg.index_type == "flat"
 
     def stage(self, name: str):
@@ -147,6 +164,7 @@ class _Merge:
         return GraphIndexBuilder(
             dim=cfg.dim, max_degree=cfg.m, beam_width=cfg.ef_construction,
             alpha=cfg.alpha, neighbor_overflow=cfg.neighbor_overflow,
+            hierarchy_enabled=cfg.hierarchy_enabled,
             batch_size=self.batch_size)
 
     def merged_pq(self, lead: Segment, rows, n_live: int):
@@ -154,35 +172,62 @@ class _Merge:
         re-encode; train afresh when the lead has none and n >= min batch.
         Host rows train on a host sample and stream their encode."""
         cfg = self.cfg
-        if cfg.quantization_type == QUANT_NONE:
+        if (cfg.quantization_type == QUANT_NONE
+                or cfg.quantization_type in SCALAR_QUANTS):
             return None
         if lead.pqv is not None:
             pq = pq_mod.refine_pq(lead.pqv.pq, rows, cfg.similarity)
         elif n_live >= cfg.min_batch_size_for_quantization:
-            pq = pq_mod.train_pq(rows, cfg.similarity,
-                                 num_subspaces=cfg.num_pq_subspaces,
-                                 device=self.device)
+            pq = pq_mod.train_pq(
+                rows, cfg.similarity, num_subspaces=cfg.num_pq_subspaces,
+                device=self.device,
+                anisotropic_eta=pq_mod.eta_from_config(cfg, rows))
         else:
             return None
         return pq_mod.PQVectors(
             pq=pq, codes=pq_mod.encode(pq, rows, cfg.similarity))
 
+    def build_source(self, pqv) -> dict | None:
+        """The decoded-bf16 beam source of the memory-constrained tier."""
+        if pqv is None or not self.on_disk:
+            return None
+        return {"decoded": pqv.decode_bf16()}
+
     def segment(self, name: str, graph: VamanaGraph, docmap: DocMap, exact,
                 build_rows, pqv) -> Segment:
         """The merged segment: codes padded to the capacity; its fp32 rows
         cut to the used prefix for the row file (on_disk PQ), else on the
-        device and padded."""
+        device and padded; scalar thresholds and codes, and in a rebuild
+        NVQ, recomputed from the merged rows `exact` (NVQ then replaces
+        the fp32 rows)."""
+        cfg = self.cfg
         cap = graph.capacity
+        n = exact.shape[0]
         if pqv is not None:
             pqv = pq_mod.PQVectors(pq=pqv.pq, codes=pad_rows(pqv.codes, cap))
         if self.host and pqv is not None:
-            vectors = exact
-        else:
-            if build_rows is None:
-                build_rows = _to_device(exact, self.device)
-            vectors = pad_rows(build_rows, cap)
-        return Segment(name=name, config=self.cfg, graph=graph, docmap=docmap,
-                       vectors=vectors, pqv=pqv)
+            return Segment(name=name, config=cfg, graph=graph, docmap=docmap,
+                           vectors=exact, pqv=pqv)
+        if build_rows is None:
+            build_rows = _to_device(exact, self.device)
+        nvq = scalar_state = scalar_codes = None
+        vectors = pad_rows(build_rows, cap)
+        if (cfg.quantization_type == QUANT_NVQ
+                and n >= cfg.min_batch_size_for_quantization):
+            nvq = nvq_mod.train_nvq(build_rows[:n], cfg.nvq_num_subvectors)
+            nvq = nvq_mod.NVQVectors(bytes_=pad_rows(nvq.bytes_, cap),
+                                     params=pad_rows(nvq.params, cap),
+                                     global_mean=nvq.global_mean)
+            vectors = None
+        if cfg.quantization_type in SCALAR_QUANTS:
+            scalar_state = scalar_mod.train_scalar_quantizer(
+                build_rows[:n], bits=SCALAR_BITS[cfg.quantization_type])
+            scalar_codes = pad_rows(
+                scalar_mod.quantize_vectors(scalar_state, build_rows[:n]),
+                cap)
+        return Segment(name=name, config=cfg, graph=graph, docmap=docmap,
+                       vectors=vectors, nvq=nvq, pqv=pqv,
+                       scalar_state=scalar_state, scalar_codes=scalar_codes)
 
 
 def _to_device(rows, device: torch.device) -> torch.Tensor:
@@ -206,7 +251,6 @@ def merge_segments(
         t0 = time.monotonic()
         assert segments, "nothing to merge"
         cfg = segments[0].config
-        check_config_ported(cfg)
         device = segments[0].device
         flat = cfg.index_type == "flat"
         # the merged segment and its sources coexist on the device while
@@ -230,6 +274,7 @@ def merge_segments(
         lead_live = lead.live_count()
         use_incremental = (
             not cfg.leading_segment_merge_disabled
+            and cfg.quantization_type != QUANT_NVQ  # NVQ always rebuilds
             and not flat  # flat merges are concat-only rebuilds
             and lead_used + sum(s.live_count() for s in others) < MAX_ORDINALS
             and lead_live / max(lead_used, 1) >= MIN_LEADING_DENSITY
@@ -278,10 +323,7 @@ def _incremental_merge(m: _Merge, lead: Segment, others: list[Segment],
         build_rows = pad_rows(_to_device(exact, m.device), capacity)
     with m.stage("pq"):
         pqv = m.merged_pq(lead, build_rows[:used], n_live)
-        build_pq = None
-        if pqv is not None and m.host:
-            # decoded-bf16 beam source for the memory-constrained tier
-            build_pq = {"decoded": pad_rows(pqv.decode_bf16(), capacity)}
+        build_pq = m.build_source(pqv)
     builder = m.builder()
     graph = lead.graph.with_capacity(capacity)
     if n_new:
@@ -330,9 +372,7 @@ def _full_rebuild_merge(m: _Merge, segments: list[Segment], lead: Segment,
         if m.flat:
             graph = VamanaGraph.flat(cap, n, m.device)
         else:
-            build_pq = None
-            if pqv is not None and m.host:
-                build_pq = {"decoded": pqv.decode_bf16()}
+            build_pq = m.build_source(pqv)
             graph = m.builder().build(build_rows, cfg.similarity,
                                       capacity=cap, pq=build_pq)
             del build_pq

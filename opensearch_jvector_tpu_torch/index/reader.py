@@ -7,8 +7,16 @@ Port of `opensearch_jvector_tpu/index/reader.py`:
     to scores and masks invalid rows), exact top-r, then a
     gather and an exact fp32 rerank on the device; flat unquantized
     segments score exact fp32 rows instead of codes;
-  * in_memory beam tier for larger graph segments: beam search with the
-    exact fp32 provider (models/searcher.py);
+  * NVQ segments of at most `scan_tier_max_codes` codes scan the
+    NVQ-decoded bf16 cache instead (one matmul); for euclidean and dot
+    product those scores are the reconstruction's own, so the rerank is
+    skipped, while cosine reranks against the decoded rows;
+  * in_memory beam tier for larger graph segments and for scalar
+    segments of any size (models/searcher.py): the exact fp32 provider
+    where the rows are resident; Hamming scores of the 1/2/4-bit codes
+    with an fp32 rerank for scalar segments; the auxiliary PQ's codes with
+    a rerank against NVQ-decoded rows for NVQ segments; the hierarchy
+    layer's descent first where the graph has one;
   * on_disk tier (`_tiered_search`): the fp32 rows live in the host row
     store, the approximate phase runs on the device and the exact rerank
     runs on the host. Its scan tier (flat segments at any size, graph
@@ -202,6 +210,7 @@ class SegmentReader:
         self._pq_decoded: torch.Tensor | None = None
         self._pq_decoded_sq: torch.Tensor | None = None
         self._codes_sq_cache: torch.Tensor | None = None
+        self._scalar_thresholds: torch.Tensor | None = None  # on the device
 
     def close(self) -> None:
         """Release the segment's host row store (on_disk segments)."""
@@ -210,12 +219,21 @@ class SegmentReader:
 
     def _decoded_cache(self) -> torch.Tensor:
         """Decoded-bf16 scoring cache (2*d bytes per row on the device,
-        charged to the breaker); raises CircuitBreakerException when it
-        does not fit."""
+        charged to the breaker): the PQ reconstruction, or for an NVQ
+        segment the NVQ one. Raises CircuitBreakerException when it does
+        not fit."""
         if self._pq_decoded is None:
             seg = self.seg
-            BREAKER.check(seg.capacity() * seg.config.dim * 2, seg.device)
-            dec = seg.pqv.decode_bf16()
+            n, d = seg.capacity(), seg.config.dim
+            if seg.nvq is not None:
+                # the NVQ scan tier's cache: the transient float32 decode
+                # (4 bytes per dimension) is charged on top of the 2 it is
+                # cast down to
+                BREAKER.check(n * d * 6, seg.device)
+                dec = seg.nvq.decode().to(torch.bfloat16)
+            else:
+                BREAKER.check(n * d * 2, seg.device)
+                dec = seg.pqv.decode_bf16()
             sq = torch.empty((dec.shape[0],), dtype=torch.float32,
                              device=dec.device)
             for s in range(0, dec.shape[0], DECODED_MATMUL_ROWS):
@@ -280,33 +298,65 @@ class SegmentReader:
         if seg.row_store is not None:  # on_disk: host-tier rerank
             return self._tiered_search(queries, q_host, params, accept,
                                        filtered, force_scan=flat)
-        if flat or (seg.pqv is not None
+        # scalar segments carry no PQ and NVQ segments' PQ codes are not
+        # their rerank source, so neither takes the ADC scan; NVQ segments
+        # scan their own decoded cache
+        if flat or ((seg.pqv is not None or seg.nvq is not None)
                     and seg.capacity() <= self._scan_bound()):
             return self._scan_search(queries, params, accept, filtered)
-        if seg.graph.upper_adjacency is not None:
-            raise NotImplementedError(segment_mod.NOT_PORTED["hierarchy"])
 
         t0 = time.monotonic()
         with phase("query", stats=self.stats):
             res = searcher_mod.search(
                 seg.graph.adjacency, seg.graph.live, seg.graph.entry,
                 queries, params, seg.config.similarity,
-                vectors=seg.vectors, accept=accept,
-            )
-            ids, scores, visited, expanded, reranked = _to_host(
+                accept=accept, **self._beam_sources())
+            ids, scores, visited, expanded, base, reranked = _to_host(
                 res.ids, res.scores, res.visited_count.sum(),
-                res.expanded_count.sum(), res.reranked_count.sum())
-            visited, expanded, reranked = (
-                int(visited), int(expanded), int(reranked))
+                res.expanded_count.sum(), res.expanded_base_count.sum(),
+                res.reranked_count.sum())
+            visited, expanded, base, reranked = (
+                int(visited), int(expanded), int(base), int(reranked))
         self.stats.increment(Counter.KNN_GRAPH_SEARCH_TIME,
                              int((time.monotonic() - t0) * 1000))
-        self._count(qn, filtered, visited, expanded, reranked)
+        self._count(qn, filtered, visited, expanded, reranked, base)
         doc_ids = seg.docmap.lookup_docs(ids)
         return QueryResult(
             doc_ids=doc_ids,
             scores=np.where(doc_ids >= 0, scores, -np.inf),
             visited=visited, expanded=expanded, reranked=reranked,
         )
+
+    def _beam_sources(self) -> dict:
+        """What the in_memory beam tier hands the searcher. Resident fp32
+        rows score exactly (faster and more accurate than the PQ codes
+        beside them); scalar segments add their codes and thresholds
+        (Hamming approximate phase, fp32 rerank); NVQ segments have no
+        resident rows, so their auxiliary PQ drives the approximate phase
+        and the NVQ decode the rerank."""
+        seg = self.seg
+        kwargs: dict = {}
+        if seg.graph.upper_adjacency is not None:
+            kwargs["upper_adjacency"] = seg.graph.upper_adjacency
+        vectors, nvq = seg.rerank_source()
+        if vectors is not None:
+            kwargs["vectors"] = vectors
+        elif seg.pqv is not None:
+            kwargs.update(pq_codes=seg.pqv.codes,
+                          pq_codebooks=seg.pqv.pq.codebooks,
+                          pq_center=seg.pqv.pq.center)
+        if seg.scalar_state is not None:
+            if self._scalar_thresholds is None:
+                self._scalar_thresholds = torch.from_numpy(
+                    np.ascontiguousarray(seg.scalar_state.thresholds)
+                ).to(seg.device)
+            kwargs.update(scalar_codes=seg.scalar_codes,
+                          scalar_thresholds=self._scalar_thresholds)
+        if nvq is not None:
+            assert seg.pqv is not None, (
+                "NVQ segments always carry an auxiliary PQ (nvq+pq)")
+            kwargs["nvq"] = nvq
+        return kwargs
 
     def _accept(self, accept_docs, deleted_docs) -> torch.Tensor | None:
         """Device accept mask over ordinals (None when unfiltered). Without
@@ -337,27 +387,42 @@ class SegmentReader:
             self._valid = valid
         return self._valid
 
-    def _count(self, qn, filtered, visited, expanded, reranked) -> None:
+    def _count(self, qn, filtered, visited, expanded, reranked,
+               expanded_base=None) -> None:
+        """`expanded_base` is the base layer's share of `expanded` where a
+        hierarchy layer was descended first; by default all of it."""
         self.stats.increment(Counter.KNN_QUERY_COUNT, qn)
         if filtered:
             self.stats.increment(Counter.KNN_QUERY_WITH_FILTER_COUNT, qn)
         self.stats.increment(Counter.KNN_QUERY_VISITED_NODES, visited)
         self.stats.increment(Counter.KNN_QUERY_EXPANDED_NODES, expanded)
-        self.stats.increment(Counter.KNN_QUERY_EXPANDED_BASE_LAYER_NODES,
-                             expanded)
+        self.stats.increment(
+            Counter.KNN_QUERY_EXPANDED_BASE_LAYER_NODES,
+            expanded if expanded_base is None else expanded_base)
         self.stats.increment(Counter.KNN_QUERY_RERANKED_COUNT, reranked)
 
     def _scan_search(self, queries, params: SearchParams, accept,
                      filtered: bool) -> QueryResult:
-        """Exhaustive scan (fused ADC over PQ codes, or exact fp32 rows for
-        flat unquantized segments), exact top-r, exact fp32 rerank."""
+        """Exhaustive scan (the NVQ-decoded bf16 cache for NVQ segments,
+        else fused ADC over PQ codes, else exact fp32 rows for flat
+        unquantized segments), exact top-r, exact rerank."""
         seg = self.seg
         simf = seg.config.similarity
         r = max(params.k * params.overquery_factor, params.k)
         t0 = time.monotonic()
         valid = self._live_valid() if accept is None else accept
         with phase("query", stats=self.stats):
-            if seg.pqv is not None:
+            if seg.nvq is not None:
+                # before the PQ branch: an NVQ segment's auxiliary PQ codes
+                # are not its rerank source
+                decoded = self._decoded_cache()
+                dec_sq = self._pq_decoded_sq
+
+                def block_scores(lo, hi):
+                    s = _decoded_scan_scores(queries, decoded[lo:hi],
+                                             dec_sq[lo:hi], simf)
+                    return s.masked_fill_(~valid[lo:hi][None, :], NEG_INF)
+            elif seg.pqv is not None:
                 luts = seg.pqv.build_query_luts(queries, simf)
 
                 def block_scores(lo, hi):
@@ -373,9 +438,19 @@ class SegmentReader:
             qualify = approx > NEG_INF
             if params.rerank_floor > 0.0:
                 qualify &= approx >= params.rerank_floor
-            cand = seg.vectors[cand_ids.clamp(min=0)]
-            exact = batched_candidate_scores(queries, cand, simf)
-            exact = torch.where(qualify, exact, NEG_INF)
+            if (seg.nvq is not None
+                    and simf is not SimilarityFunction.COSINE):
+                # a rerank would rescore the very rows the scan scored: for
+                # euclidean and dot product the approximate scores are the
+                # reconstruction's exact ones. (The reconstruction is not
+                # normalized, so cosine still reranks.)
+                exact = torch.where(qualify, approx, NEG_INF)
+            else:
+                rows = (seg.vectors if seg.vectors is not None
+                        else self._decoded_cache())  # the NVQ reconstruction
+                cand = rows[cand_ids.clamp(min=0)].float()
+                exact = batched_candidate_scores(queries, cand, simf)
+                exact = torch.where(qualify, exact, NEG_INF)
             kk = min(params.k, exact.shape[1])
             top_s, idx = torch.topk(exact, kk, dim=1)
             top_i = torch.gather(cand_ids, 1, idx)
@@ -502,14 +577,15 @@ class SegmentReader:
                 approx = np.pad(approx, ((0, 0), (0, padw)),
                                 constant_values=-np.inf)
             return cand_ids, approx, int(scanned) * queries.shape[0], 0
+        source: dict = {}
         if seg.graph.upper_adjacency is not None:
-            raise NotImplementedError(segment_mod.NOT_PORTED["hierarchy"])
+            source["upper_adjacency"] = seg.graph.upper_adjacency
         try:
-            source = {"pq_decoded": self._decoded_cache()}
+            source["pq_decoded"] = self._decoded_cache()
         except CircuitBreakerException:  # memory-tight: codes only
-            source = {"pq_codes": seg.pqv.codes,
-                      "pq_codebooks": seg.pqv.pq.codebooks,
-                      "pq_center": seg.pqv.pq.center}
+            source.update(pq_codes=seg.pqv.codes,
+                          pq_codebooks=seg.pqv.pq.codebooks,
+                          pq_center=seg.pqv.pq.center)
         res = searcher_mod.search(
             seg.graph.adjacency, seg.graph.live, seg.graph.entry, queries,
             dataclasses.replace(params, k=r), seg.config.similarity,

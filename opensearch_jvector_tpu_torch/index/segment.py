@@ -1,4 +1,4 @@
-"""Segment model + on-disk layout (fp32 and PQ segments).
+"""Segment model + on-disk layout.
 
 Port of `opensearch_jvector_tpu/index/segment.py`. The on-disk format is
 the contract between the two packages: a segment written by either opens in
@@ -7,17 +7,20 @@ containers (index/store.py):
 
   meta.jvtpu     config + counts + quantization type byte
   graph.jvtpu    adjacency/degrees/live/entry (+ hierarchy layer if any)
-  vectors.jvtpu  fp32 rows; for on_disk PQ segments only the marker
+  vectors.jvtpu  fp32 rows; NVQ bytes/params/global_mean ({"kind": "nvq"})
+                 when the config is nvq+pq, in either mode: NVQ replaces
+                 the inline rows, so such a segment has no row file; for
+                 on_disk PQ segments only the marker
                  {"kind": "fp32_ondisk"}, the rows being in:
   rows.f32       raw row-major fp32 rows (+ rows.f32.crc: crc32, bytes),
                  read through the host row store (utils/native_store.py)
-  pq.jvtpu       PQ codebooks + center + codes
+  pq.jvtpu       PQ codebooks + center + codes (+ aniso_eta when the
+                 codebooks were trained with the anisotropic loss)
+  scalar.jvtpu   1/2/4-bit thresholds + bit-packed codes
   docmap.jvtpu   ordinal->doc map
 
 Files store the used-ordinal prefix; `read_segment` re-pads the device
-tensors to the pow2 capacity. NVQ and scalar segments and anisotropic PQ
-state are not ported yet: reading one raises NotImplementedError naming
-its ROADMAP item.
+tensors to the pow2 capacity.
 """
 
 from __future__ import annotations
@@ -40,7 +43,12 @@ from opensearch_jvector_tpu_torch.models.graph import (
     VamanaGraph,
     bucket_capacity,
 )
+from opensearch_jvector_tpu_torch.models.nvq import NVQVectors
 from opensearch_jvector_tpu_torch.models.pq import PQVectors, ProductQuantization
+from opensearch_jvector_tpu_torch.models.scalar import (
+    SCALAR_STATE_CACHE,
+    QuantizationState,
+)
 from opensearch_jvector_tpu_torch.utils.circuit_breaker import BREAKER
 from opensearch_jvector_tpu_torch.utils.native_store import (
     PagedVectorStore,
@@ -52,17 +60,6 @@ from opensearch_jvector_tpu_torch.utils.native_store import (
 # 51-53); 3-5 are the scalar modes
 QUANT_TYPE_BYTE = {QUANT_NONE: 0, QUANT_PQ: 1, QUANT_NVQ: 2,
                    "1bit": 3, "2bit": 4, "4bit": 5}
-
-# ROADMAP items are named by title: their numbers change
-OTHER_QUANTIZERS = 'ROADMAP queue 1, "Other quantizers"'
-NOT_PORTED = {
-    "nvq": f"NVQ segments are not ported yet ({OTHER_QUANTIZERS})",
-    "scalar": "scalar (1/2/4-bit) segments are not ported yet "
-              f"({OTHER_QUANTIZERS})",
-    "aniso": f"anisotropic PQ is not ported yet ({OTHER_QUANTIZERS})",
-    "hierarchy": "the hierarchy layer is not ported yet "
-                 f"({OTHER_QUANTIZERS})",
-}
 
 
 @dataclasses.dataclass
@@ -79,12 +76,21 @@ class Segment:
     graph: VamanaGraph
     docmap: DocMap
     vectors: torch.Tensor | np.ndarray | None = None  # fp32 [capacity, d]
+    nvq: NVQVectors | None = None
     pqv: PQVectors | None = None
     row_store: PagedVectorStore | None = None
+    scalar_state: QuantizationState | None = None
+    scalar_codes: torch.Tensor | None = None  # [capacity, B] uint8 packed
 
     @property
     def quantization_type(self) -> str:
-        return QUANT_PQ if self.pqv is not None else QUANT_NONE
+        if self.nvq is not None:
+            return QUANT_NVQ
+        if self.scalar_state is not None:
+            return {1: "1bit", 2: "2bit", 4: "4bit"}[self.scalar_state.bits]
+        if self.pqv is not None:
+            return QUANT_PQ
+        return QUANT_NONE
 
     @property
     def device(self) -> torch.device:
@@ -95,6 +101,13 @@ class Segment:
 
     def capacity(self) -> int:
         return self.graph.capacity
+
+    def rerank_source(self):
+        """(vectors, nvq) pair for the searcher's rerank phase."""
+        if self.vectors is not None:
+            return self.vectors, None
+        assert self.nvq is not None
+        return None, self.nvq
 
 
 def write_segment(root: str | Path, seg: Segment) -> Path:
@@ -122,7 +135,8 @@ def write_segment(root: str | Path, seg: Segment) -> Path:
     store.write_container(
         d / "graph.jvtpu", {"entry": int(seg.graph.entry)}, graph_arrays
     )
-    on_disk = seg.config.mode == "on_disk" and seg.pqv is not None
+    on_disk = (seg.config.mode == "on_disk" and seg.pqv is not None
+               and seg.nvq is None)
     if seg.row_store is not None or (on_disk and seg.vectors is not None):
         if seg.vectors is not None:
             write_row_file(d / "rows.f32", _host_rows(seg.vectors[:used]))
@@ -134,12 +148,31 @@ def write_segment(root: str | Path, seg: Segment) -> Path:
             {"kind": "fp32"},
             {"vectors": _host_rows(seg.vectors[:used])},
         )
+    if seg.nvq is not None:
+        store.write_container(d / "vectors.jvtpu", {"kind": "nvq"}, {
+            "bytes": seg.nvq.bytes_[:used].cpu().numpy().astype(np.uint8),
+            "params": seg.nvq.params[:used].cpu().numpy(),
+            "global_mean": seg.nvq.global_mean.cpu().numpy(),
+        })
     if seg.pqv is not None:
-        store.write_container(d / "pq.jvtpu", {}, {
+        arrays = {
             "codebooks": seg.pqv.pq.codebooks.cpu().numpy(),
             "center": seg.pqv.pq.center.cpu().numpy(),
             "codes": seg.pqv.codes[:used].cpu().numpy().astype(np.uint8),
-        })
+        }
+        if seg.pqv.pq.aniso_eta is not None:
+            # the assignment metric is part of the state: a merge's
+            # re-encode must use the same loss
+            arrays["aniso_eta"] = np.asarray(
+                seg.pqv.pq.aniso_eta, np.float32).reshape(1)
+        store.write_container(d / "pq.jvtpu", {}, arrays)
+    if seg.scalar_state is not None:
+        store.write_container(
+            d / "scalar.jvtpu", {"bits": seg.scalar_state.bits}, {
+                "thresholds": np.asarray(seg.scalar_state.thresholds),
+                "codes": seg.scalar_codes[:used].cpu().numpy().astype(
+                    np.uint8),
+            })
     docmap_arrays = {"ord_to_doc": seg.docmap.ord_to_doc}
     if seg.docmap.ord_to_parent is not None:
         docmap_arrays["ord_to_parent"] = seg.docmap.ord_to_parent
@@ -160,8 +193,6 @@ def read_segment(path: str | Path, device: torch.device | str,
     device = torch.device(device)
     meta, _ = store.read_container(d / "meta.jvtpu", verify=verify)
     config = DiskAnnConfig.from_meta(meta["config"])
-    if (d / "scalar.jvtpu").exists():
-        raise NotImplementedError(NOT_PORTED["scalar"])
     BREAKER.check(
         BREAKER.estimate_segment_bytes(
             int(meta.get("capacity", 0)), config.dim, config.m,
@@ -194,32 +225,53 @@ def read_segment(path: str | Path, device: torch.device | str,
     docmap = DocMap(darr["ord_to_doc"], darr.get("ord_to_parent"))
 
     vectors = None
+    nvq = None
     row_store = None
     vpath = d / "vectors.jvtpu"
     if vpath.exists():
         vmeta, varr = store.read_container(vpath, verify=verify)
-        if vmeta["kind"] == "fp32_ondisk":
-            row_store = PagedVectorStore(d / "rows.f32", dim=config.dim)
-        elif vmeta["kind"] != "fp32":
-            raise NotImplementedError(NOT_PORTED["nvq"])
-        else:
+        if vmeta["kind"] == "fp32":
             vectors = _dev(varr["vectors"], 0)
+        elif vmeta["kind"] == "fp32_ondisk":
+            row_store = PagedVectorStore(d / "rows.f32", dim=config.dim)
+        else:
+            nvq = NVQVectors(
+                bytes_=_dev(varr["bytes"], 0),
+                params=_dev(varr["params"], 0),
+                global_mean=torch.from_numpy(
+                    varr["global_mean"].copy()).to(device),
+            )
+
+    scalar_state = None
+    scalar_codes = None
+    spath = d / "scalar.jvtpu"
+    if spath.exists():
+        key = str(d.resolve())
+        smeta, sarr = store.read_container(spath, verify=verify)
+        scalar_state = SCALAR_STATE_CACHE.get(key)
+        if scalar_state is None:
+            scalar_state = QuantizationState(
+                bits=int(smeta["bits"]),
+                thresholds=np.array(sarr["thresholds"]))
+            SCALAR_STATE_CACHE.put(key, scalar_state)
+        scalar_codes = _dev(sarr["codes"], 0)
 
     pqv = None
     ppath = d / "pq.jvtpu"
     if ppath.exists():
         _, parr = store.read_container(ppath, verify=verify)
-        if "aniso_eta" in parr:
-            raise NotImplementedError(NOT_PORTED["aniso"])
         pqv = PQVectors(
             pq=ProductQuantization(
                 codebooks=torch.from_numpy(parr["codebooks"].copy()).to(device),
                 center=torch.from_numpy(parr["center"].copy()).to(device),
+                aniso_eta=(float(parr["aniso_eta"][0])
+                           if "aniso_eta" in parr else None),
             ),
             codes=_dev(parr["codes"], 0),
         )
     return Segment(name=d.name, config=config, graph=graph, docmap=docmap,
-                   vectors=vectors, pqv=pqv, row_store=row_store)
+                   vectors=vectors, nvq=nvq, pqv=pqv, row_store=row_store,
+                   scalar_state=scalar_state, scalar_codes=scalar_codes)
 
 
 def check_integrity(path: str | Path) -> bool:

@@ -3,21 +3,24 @@
 Port of the flush of `opensearch_jvector_tpu/index/writer.py`:
   * buffers (docId, float vector) blocks; byte vectors are rejected
   * below `min_batch_size_for_quantization` builds fp32 only; otherwise
-    trains PQ and encodes (`_quantize_for_flush`), then builds the Vamana
-    graph over the fp32 rows
+    trains the configured quantizer and encodes (`_quantize_for_flush`:
+    PQ, plain or anisotropic; NVQ beside its auxiliary PQ; 1/2/4-bit
+    scalar codes), then builds the Vamana graph over the fp32 rows, with
+    the hierarchy layer when the config enables it
   * `index_type: flat` builds no graph and keeps the corpus on the host:
     PQ trains on a host sample and the encode streams host chunks
   * in_memory segments keep their fp32 rows on the device for the rerank;
-    on_disk PQ segments write them to the raw row file (`rows.f32`), and a
-    vamana on_disk flush scores its build's beam candidates from the
-    decoded-PQ cache (prunes stay exact fp32)
+    NVQ segments keep the NVQ bytes instead, in either mode; on_disk PQ
+    segments write the rows to the raw row file (`rows.f32`); a vamana
+    on_disk flush scores its build's beam candidates from the decoded-PQ
+    cache (prunes stay exact fp32)
   * writes the segment with versioned, checksummed containers
 
-Pure quantized construction (on_disk graph flushes of capacity >=
-`quantized_build_min_capacity`), NVQ, scalar quantization and the
-hierarchy layer are not ported yet and raise NotImplementedError naming
-their ROADMAP item by its title. The reference's device-resident row
-provider (`flush(device_rows=...)`) is not ported either.
+Pure quantized construction (on_disk PQ graph flushes of capacity >=
+`quantized_build_min_capacity`) is not ported yet and raises
+NotImplementedError naming its ROADMAP item by its title. The reference's
+device-resident row provider (`flush(device_rows=...)`) is not ported
+either.
 """
 
 from __future__ import annotations
@@ -31,18 +34,19 @@ import torch
 
 from opensearch_jvector_tpu_torch.api.config import (
     QUANT_NONE,
+    QUANT_NVQ,
     QUANT_PQ,
+    SCALAR_BITS,
+    SCALAR_QUANTS,
     DiskAnnConfig,
     ValidationError,
 )
 from opensearch_jvector_tpu_torch.api.stats import STATS, Counter, StatsRegistry
 from opensearch_jvector_tpu_torch.index.docmap import DocMap
-from opensearch_jvector_tpu_torch.index.segment import (
-    OTHER_QUANTIZERS,
-    Segment,
-    write_segment,
-)
+from opensearch_jvector_tpu_torch.index.segment import Segment, write_segment
+from opensearch_jvector_tpu_torch.models import nvq as nvq_mod
 from opensearch_jvector_tpu_torch.models import pq as pq_mod
+from opensearch_jvector_tpu_torch.models import scalar as scalar_mod
 from opensearch_jvector_tpu_torch.models.builder import GraphIndexBuilder
 from opensearch_jvector_tpu_torch.models.graph import (
     VamanaGraph,
@@ -51,20 +55,6 @@ from opensearch_jvector_tpu_torch.models.graph import (
 )
 from opensearch_jvector_tpu_torch.utils.circuit_breaker import BREAKER
 from opensearch_jvector_tpu_torch.utils.profiling import phase
-
-
-def check_config_ported(cfg: DiskAnnConfig) -> None:
-    """Raise NotImplementedError for configurations the port lacks."""
-    if cfg.quantization_type not in (QUANT_NONE, QUANT_PQ):
-        raise NotImplementedError(
-            f"{cfg.quantization_type} quantization is not ported yet "
-            f"({OTHER_QUANTIZERS})")
-    if cfg.pq_anisotropic_threshold:
-        raise NotImplementedError(
-            f"anisotropic PQ is not ported yet ({OTHER_QUANTIZERS})")
-    if cfg.hierarchy_enabled:
-        raise NotImplementedError(
-            f"the hierarchy layer is not ported yet ({OTHER_QUANTIZERS})")
 
 
 # on_disk PQ graph segments at or above this pow2 capacity take the
@@ -96,7 +86,6 @@ class IndexWriter:
         device: torch.device | str,
         stats: StatsRegistry = STATS,
     ):
-        check_config_ported(config)
         self.quantized_build_min_capacity = QUANTIZED_BUILD_MIN_CAPACITY
         self.root = Path(root)
         self.config = config
@@ -174,22 +163,34 @@ class IndexWriter:
         return removed
 
     def _quantize_for_flush(self, vectors: torch.Tensor | np.ndarray):
-        """Train PQ and encode when n >= min batch; else None. A numpy
-        corpus trains on a host sample and streams its encode."""
+        """Train the configured quantizer and encode when n >= min batch
+        -> (pqv, nvq, scalar), each None where it does not apply; `scalar`
+        is a (QuantizationState, packed codes) pair for the 1/2/4-bit
+        modes. A numpy corpus (flat segments) trains PQ on a host sample
+        and streams its encode."""
         cfg = self.config
         n = vectors.shape[0]
-        if cfg.quantization_type == QUANT_NONE:
-            return None
-        if n < cfg.min_batch_size_for_quantization:
-            return None
+        if (cfg.quantization_type == QUANT_NONE
+                or n < cfg.min_batch_size_for_quantization):
+            return None, None, None
         t0 = time.monotonic()
-        pq = pq_mod.train_pq(vectors, cfg.similarity,
-                             num_subspaces=cfg.num_pq_subspaces,
-                             device=self.device)
-        codes = pq_mod.encode(pq, vectors, cfg.similarity)
+        pqv = nvq = scalar = None
+        if cfg.quantization_type in SCALAR_QUANTS:
+            state = scalar_mod.train_scalar_quantizer(
+                vectors, bits=SCALAR_BITS[cfg.quantization_type])
+            scalar = (state, scalar_mod.quantize_vectors(state, vectors))
+        else:
+            pq = pq_mod.train_pq(
+                vectors, cfg.similarity, num_subspaces=cfg.num_pq_subspaces,
+                device=self.device,
+                anisotropic_eta=pq_mod.eta_from_config(cfg, vectors))
+            pqv = pq_mod.PQVectors(
+                pq=pq, codes=pq_mod.encode(pq, vectors, cfg.similarity))
+            if cfg.quantization_type == QUANT_NVQ:
+                nvq = nvq_mod.train_nvq(vectors, cfg.nvq_num_subvectors)
         self.stats.increment(Counter.KNN_QUANTIZATION_TRAINING_TIME,
                              int((time.monotonic() - t0) * 1000))
-        return pq_mod.PQVectors(pq=pq, codes=codes)
+        return pqv, nvq, scalar
 
     def flush(self, name: str | None = None, sort_map=None) -> Path | None:
         """Build + persist a segment from the buffered docs; clears buffer.
@@ -249,7 +250,7 @@ class IndexWriter:
         if not flat:
             vectors = torch.from_numpy(vectors).to(self.device)
 
-        pqv = self._quantize_for_flush(vectors)
+        pqv, nvq, scalar = self._quantize_for_flush(vectors)
 
         t0 = time.monotonic()
         if flat:
@@ -259,6 +260,7 @@ class IndexWriter:
                 dim=cfg.dim, max_degree=cfg.m,
                 beam_width=cfg.ef_construction, alpha=cfg.alpha,
                 neighbor_overflow=cfg.neighbor_overflow,
+                hierarchy_enabled=cfg.hierarchy_enabled,
             )
             build_pq = None
             if on_disk and pqv is not None:
@@ -277,15 +279,23 @@ class IndexWriter:
         cap = graph.capacity
         if pqv is not None:
             pqv = pq_mod.PQVectors(pq=pqv.pq, codes=pad_rows(pqv.codes, cap))
-        if flat and not (on_disk and pqv is not None):
-            # in-memory flat rows serve the scan and its rerank on device
-            vectors = torch.from_numpy(vectors).to(self.device)
-        # on_disk rows (host or device) go to the row file, sliced to the
-        # used prefix: no padding needed
-        seg = Segment(name=name, config=cfg, graph=graph, docmap=docmap,
-                      vectors=(vectors if on_disk and pqv is not None
-                               else pad_rows(vectors, cap)),
-                      pqv=pqv)
+        if nvq is not None:
+            # NVQ replaces the inline fp32 rows, in either mode
+            nvq = nvq_mod.NVQVectors(bytes_=pad_rows(nvq.bytes_, cap),
+                                     params=pad_rows(nvq.params, cap),
+                                     global_mean=nvq.global_mean)
+            vectors = None
+        elif not (on_disk and pqv is not None):
+            # (on_disk PQ rows, host or device, go to the row file as they
+            # are, sliced to the used prefix: no padding needed)
+            if flat:  # in-memory flat rows serve the scan on the device
+                vectors = torch.from_numpy(vectors).to(self.device)
+            vectors = pad_rows(vectors, cap)
+        seg = Segment(
+            name=name, config=cfg, graph=graph, docmap=docmap,
+            vectors=vectors, nvq=nvq, pqv=pqv,
+            scalar_state=scalar[0] if scalar else None,
+            scalar_codes=pad_rows(scalar[1], cap) if scalar else None)
         path = write_segment(self.root, seg)
         self.stats.increment(Counter.KNN_FLUSH_COUNT)
         return path

@@ -21,10 +21,10 @@ keeps only the degree mirror and the small edge lists. There is no batch
 padding: the reference pads rounds to power-of-two widths only to bound
 XLA compiles. `build(..., pq={"decoded": cache})` scores the insert
 rounds' beam candidates from a bf16 decoded-PQ cache (the on_disk flush's
-build source) while every prune stays on the fp32 rows. Pure quantized
-construction (no fp32 rows on the device) and the hierarchy layer wait
-(ROADMAP queue 1, "on_disk remnants: the quantized build" and "Other
-quantizers").
+build source) while every prune stays on the fp32 rows. With
+`hierarchy_enabled`, `cleanup` adds the coarse upper layer
+(`_build_upper_layer`). Pure quantized construction (no fp32 rows on the
+device) waits (ROADMAP queue 1, "on_disk remnants: the quantized build").
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ ORPHAN_SCAN_BLOCK = 1 << 18
 # Bounds the [B, C, d] candidate-row gather of one splice-prune chunk.
 SPLICE_GATHER_BYTES = 1 << 30
 # Beam expansions per iteration during insert rounds (the reference's
-# construction default) and the seed of the insert order.
+# construction default) and the default seed of the insert order.
 CONSTRUCTION_EXPANSIONS = 8
 BUILD_SEED = 42
 
@@ -197,9 +197,13 @@ class GraphIndexBuilder:
         beam_width: int = 100,
         alpha: float = 1.2,
         neighbor_overflow: float = 1.2,
+        hierarchy_enabled: bool = False,
         batch_size: int | None = None,  # None -> auto by dim (see below)
+        seed: int = BUILD_SEED,  # insert order, upper-layer member sample
         refine_passes: int = 0,  # refine_graph passes at the end of build
     ):
+        self.hierarchy_enabled = bool(hierarchy_enabled)
+        self.seed = int(seed)
         self.dim = dim
         self.max_degree = int(max_degree)
         self.beam_width = int(beam_width)
@@ -410,7 +414,7 @@ class GraphIndexBuilder:
         escores[n:] = NEG_INF
         entry = int(torch.argmax(escores))
 
-        rng = np.random.default_rng(BUILD_SEED)
+        rng = np.random.default_rng(self.seed)
         order = rng.permutation(n)
         # the entry must be in the bootstrap block: every round's beam
         # search starts there
@@ -470,7 +474,7 @@ class GraphIndexBuilder:
         if pq is not None:
             pq = {"decoded": pad_rows(pq["decoded"], graph.capacity)}
         ids_all = np.nonzero(graph.live.cpu().numpy())[0]
-        rng = np.random.default_rng(BUILD_SEED + 1)
+        rng = np.random.default_rng(self.seed + 1)
         for _ in range(passes):
             order = rng.permutation(ids_all)
             for s in range(0, order.size, self.batch_size):
@@ -620,12 +624,54 @@ class GraphIndexBuilder:
                 if self._repair_orphans(st, live, vectors, simf, entry) == 0:
                     break
 
+        upper = None
+        if self.hierarchy_enabled:
+            upper = self._build_upper_layer(vectors, live, entry, simf)
         return VamanaGraph(
             adjacency=st.adj,
             degrees=torch.as_tensor(st.deg, device=dev),
             live=torch.as_tensor(live, device=dev),
             entry=entry,
+            upper_adjacency=upper,
         )
+
+    def _build_upper_layer(self, vectors: torch.Tensor, live: np.ndarray,
+                           entry: int, simf: SimilarityFunction):
+        """Coarse hierarchy layer (hierarchy_enabled parity, HNSW-style).
+
+        A Vamana graph over a sample of about 4*sqrt(n) live nodes (the
+        entry included), expressed in the BASE ordinal space as a sparse
+        full-height adjacency [capacity, m_up], so the same score providers
+        drive both layers. The sample is the reference's host draw, so both
+        packages pick the same members from the same live set. Rebuilt at
+        every cleanup: it is orders of magnitude smaller than the base
+        layer. None below 8 live nodes."""
+        live_ids = np.nonzero(live)[0]
+        n = live_ids.size
+        if n < 8:
+            return None
+        rng = np.random.default_rng(self.seed + 7)
+        s_size = min(n, max(64, int(4 * np.sqrt(n))))
+        members = rng.choice(live_ids, s_size, replace=False)
+        if entry not in members:
+            members[0] = entry
+        members = np.unique(members)
+        m_up = min(16, self.max_degree)
+        sub = GraphIndexBuilder(
+            dim=self.dim, max_degree=m_up, beam_width=64, alpha=self.alpha,
+            batch_size=min(self.batch_size, 1024), seed=self.seed + 11)
+        dev = vectors.device
+        members_t = torch.as_tensor(members, device=dev)
+        sub_graph = sub.build(vectors[members_t], simf)
+        # the sub-build pads to its own capacity; only the first
+        # len(members) rows are real nodes
+        local = sub_graph.adjacency[: members.size, :m_up].long()
+        translated = torch.where(local >= 0, members_t[local.clamp(min=0)],
+                                 -1).to(torch.int32)
+        upper = torch.full((live.shape[0], m_up), -1, dtype=torch.int32,
+                           device=dev)
+        upper[members_t] = translated
+        return upper
 
     def _splice_prune(self, st: _DeviceAdj, ids: torch.Tensor,
                       live_dev: torch.Tensor, vectors: torch.Tensor,

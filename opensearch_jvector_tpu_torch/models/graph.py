@@ -40,9 +40,9 @@ def pad_rows(arr: torch.Tensor, capacity: int) -> torch.Tensor:
 class VamanaGraph:
     """Device-resident Vamana graph state.
 
-    `upper_adjacency` is the hierarchy layer of the reference's format. It
-    is read and written so segments round-trip, but searching it waits for
-    the hierarchy port (ROADMAP queue 1, "Other quantizers").
+    `upper_adjacency` is the hierarchy layer (`hierarchy_enabled`): a
+    coarse graph over a sample of the nodes, in the base ordinal space,
+    that the searcher descends first to pick each query's entry point.
     """
 
     adjacency: torch.Tensor  # int32 [capacity, max_degree], -1 padded

@@ -1,13 +1,15 @@
 """Product quantization model (codebooks + codes).
 
-Port of `opensearch_jvector_tpu/models/pq.py` for plain (isotropic) PQ:
+Port of `opensearch_jvector_tpu/models/pq.py`:
   * k-means++ per subspace, <=256 clusters => 1 byte/code
   * global-mean centering for EUCLIDEAN, normalized training for COSINE
   * the reference's dimension-adaptive default subspace count
   * host-resident corpora (numpy) train on a host sample and encode in
     streamed chunks, so the corpus never has to fit on the device
   * `refine_pq` adapts a merge's leading codebooks to the merged rows
-Anisotropic codebooks wait (ROADMAP queue 1, "Other quantizers").
+  * anisotropic (score-aware) codebooks: `aniso_eta` travels with the
+    trained state, and training, refinement and encoding all assign with
+    the same loss
 """
 
 from __future__ import annotations
@@ -21,8 +23,10 @@ from opensearch_jvector_tpu_torch.ops import adc as adc_ops
 from opensearch_jvector_tpu_torch.ops.adc_kernel import adc_scan
 from opensearch_jvector_tpu_torch.ops.distances import SimilarityFunction
 from opensearch_jvector_tpu_torch.ops.kmeans import (
+    aniso_assign_scores,
     lloyd_iters,
     train_kmeans_subspaces,
+    train_kmeans_subspaces_aniso,
 )
 
 
@@ -50,10 +54,15 @@ def default_num_subspaces(dim: int) -> int:
 
 @dataclasses.dataclass
 class ProductQuantization:
-    """Trained PQ state: codebooks + the global centering vector."""
+    """Trained PQ state: codebooks + the global centering vector.
+
+    `aniso_eta` (None = plain PQ) marks codebooks trained with the
+    anisotropic score-aware loss: encode-time assignment must use the same
+    loss, so it travels with the state (a float32 value)."""
 
     codebooks: torch.Tensor  # [M, K, dsub] f32
     center: torch.Tensor  # [d] f32 (zeros when centering disabled)
+    aniso_eta: float | None = None
 
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:
@@ -70,6 +79,42 @@ def _preprocess(vectors: torch.Tensor, simf: SimilarityFunction):
         c = torch.mean(vectors, 0)
         return vectors - c, c
     return vectors, zeros
+
+
+def eta_for_threshold(threshold: float, dim: int) -> float:
+    """ScaNN's parallel-error weight from a score threshold T: queries
+    scoring >= T against a point matter; eta = (d-1) T^2 / (1 - T^2).
+    `dim` should be the INTRINSIC dimension of the corpus."""
+    t2 = float(threshold) ** 2
+    return max(1.0, (dim - 1) * t2 / max(1e-9, 1.0 - t2))
+
+
+def estimate_intrinsic_dim(vectors: torch.Tensor | np.ndarray,
+                           max_rows: int = 16384) -> float:
+    """Participation ratio of the covariance spectrum, (sum l)^2 / sum l^2,
+    over the first `max_rows` rows, on the host: the ambient dimension for
+    isotropic data, the latent one for low-rank data. Of a tensor only
+    those rows are copied to the host."""
+    x = vectors[:max_rows]
+    if isinstance(x, torch.Tensor):
+        x = x.cpu().numpy()
+    x = np.asarray(x, np.float32)
+    x = x - x.mean(axis=0, keepdims=True)
+    cov = (x.T @ x) / max(1, x.shape[0] - 1)
+    ev = np.clip(np.linalg.eigvalsh(cov), 0.0, None)
+    s1, s2 = float(ev.sum()), float((ev * ev).sum())
+    if s2 <= 0.0:
+        return float(x.shape[1])
+    return max(1.0, min(float(x.shape[1]), s1 * s1 / s2))
+
+
+def eta_from_config(cfg, vectors) -> float | None:
+    """The anisotropic weight of a config: its threshold and the corpus's
+    estimated intrinsic dimension (None when the feature is off)."""
+    t = getattr(cfg, "pq_anisotropic_threshold", None)
+    if not t:
+        return None
+    return eta_for_threshold(t, estimate_intrinsic_dim(vectors))
 
 
 TRAIN_ITERS = 8  # Lloyd iterations after k-means++ seeding
@@ -89,8 +134,10 @@ def train_pq(
     num_subspaces: int | None = None,
     max_train: int = 131072,
     device: torch.device | str | None = None,  # for a numpy corpus
+    anisotropic_eta: float | None = None,
 ) -> ProductQuantization:
     """Train PQ codebooks (k-means++ + Lloyd per subspace), K = min(256, n).
+    `anisotropic_eta` > 1 trains with the score-aware anisotropic loss.
 
     Training samples `max_train` rows with
     `np.random.default_rng(TRAIN_SEED)`, as the reference does. For a
@@ -113,6 +160,12 @@ def train_pq(
         x = x[torch.as_tensor(_train_sample(n, max_train), device=x.device)]
     x_sub = x.reshape(-1, m, d // m).transpose(0, 1).contiguous()
     gen = torch.Generator(device=vectors.device).manual_seed(TRAIN_SEED)
+    if anisotropic_eta is not None and anisotropic_eta > 1.0:
+        eta = float(np.float32(anisotropic_eta))
+        codebooks = train_kmeans_subspaces_aniso(x_sub, k, eta, TRAIN_ITERS,
+                                                 gen)
+        return ProductQuantization(codebooks=codebooks, center=center,
+                                   aniso_eta=eta)
     codebooks = train_kmeans_subspaces(x_sub, k, TRAIN_ITERS, gen)
     return ProductQuantization(codebooks=codebooks, center=center)
 
@@ -146,7 +199,8 @@ def refine_pq(
                               device=x.device)]
     x_sub = x.reshape(-1, m, dsub).transpose(0, 1).contiguous()
     return ProductQuantization(
-        codebooks=lloyd_iters(x_sub, pq.codebooks, iters), center=center)
+        codebooks=lloyd_iters(x_sub, pq.codebooks, iters, pq.aniso_eta),
+        center=center, aniso_eta=pq.aniso_eta)
 
 
 DECODE_ROWS = 1 << 18  # rows per decode step
@@ -160,7 +214,8 @@ def encode_pq(pq: ProductQuantization, vectors: torch.Tensor) -> torch.Tensor:
     """Encode [n, d] -> codes [n, M] uint8 (nearest centroid per subspace).
 
     argmin over ||c||^2 - 2 x.c (||x||^2 is constant in the argmin), the
-    reference's formula, in full float32."""
+    reference's formula, in full float32; anisotropically trained codebooks
+    assign with their own loss."""
     n = vectors.shape[0]
     m, k, dsub = pq.codebooks.shape
     c2 = torch.sum(pq.codebooks * pq.codebooks, -1).unsqueeze(1)  # [M, 1, K]
@@ -169,9 +224,12 @@ def encode_pq(pq: ProductQuantization, vectors: torch.Tensor) -> torch.Tensor:
     for s in range(0, n, step):
         x = vectors[s: s + step] - pq.center
         x_sub = x.reshape(-1, m, dsub).transpose(0, 1)  # [M, rows, dsub]
-        dots = torch.bmm(x_sub, pq.codebooks.transpose(1, 2))  # [M, rows, K]
-        out[s: s + step] = torch.argmin(c2 - 2.0 * dots, dim=2).T.to(
-            torch.uint8)
+        if pq.aniso_eta is not None:
+            cost = aniso_assign_scores(x_sub, pq.codebooks, pq.aniso_eta)
+        else:
+            dots = torch.bmm(x_sub, pq.codebooks.transpose(1, 2))
+            cost = c2 - 2.0 * dots  # [M, rows, K]
+        out[s: s + step] = torch.argmin(cost, dim=2).T.to(torch.uint8)
     return out
 
 

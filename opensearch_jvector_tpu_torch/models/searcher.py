@@ -7,24 +7,29 @@ queries walks the graph together:
   * `E` expansions per iteration, a visited ring of `max_iters * E`
     expanded ids, and an `active` mask; a query stops when its pool holds
     no unexpanded candidate or the iteration budget is spent;
-  * results are the accepted & live top-R of the pool, then top-k with the
-    `threshold` cut.
+  * results are the accepted & live top-R of the pool;
+  * with a hierarchy layer, a short beam over the coarse upper graph first
+    picks each query's own base-layer entry point;
+  * the rerank phase rescores the R survivors exactly (fp32 rows, or
+    NVQ-decoded rows), after the `rerank_floor` cut on the approximate
+    score; then top-k and the `threshold` cut.
 
 Score providers (the approximate phase), chosen by what `search` is given:
-  * `exact`: fp32 rows (`vectors`);
+  * `exact`: fp32 rows (`vectors`); nothing to rerank;
   * `pq_decoded`: exact scoring over the bf16 decoded-PQ cache with bf16
     queries (float32 products);
   * `pq`: codes only — the candidates' codebook rows are gathered
     (decode) and scored against the centered (cosine: normalized)
-    queries.
-The two PQ providers return approximate scores: their callers rerank
-(the on_disk tier on the host) or use them as they are (graph build).
-The device rerank of PQ candidates against fp32 rows, the Hamming and
-NVQ providers and the hierarchy entry stage wait (ROADMAP queue 1,
-"on_disk remnants" and "Other quantizers").
+    queries;
+  * `scalar`: Hamming scores of bit-packed 1/2/4-bit codes against the
+    queries' own codes.
+The approximate providers rerank on the device when a rerank source is
+given (`nvq`, `rerank_vectors` or `vectors`); without one their scores are
+returned as they are (the on_disk tier reranks on the host, the graph
+build prunes on fp32 rows).
 
-Counters follow `SearchResult`: nodes scored (visited), nodes expanded,
-nodes reranked (always 0 here: no provider reranks on the device yet).
+Counters follow `SearchResult`: nodes scored (visited), nodes expanded on
+both layers, on the base layer alone, and candidates reranked.
 
 Deduplication of new neighbors against the pool, the visited ring and
 each other is one per-row sort instead of the reference's pairwise
@@ -39,9 +44,12 @@ from collections.abc import Callable
 
 import torch
 
+from opensearch_jvector_tpu_torch.models.nvq import NVQVectors
+from opensearch_jvector_tpu_torch.models.scalar import thermometer_codes
 from opensearch_jvector_tpu_torch.ops.distances import (
     SimilarityFunction,
     batched_candidate_scores,
+    hamming_scores,
 )
 from opensearch_jvector_tpu_torch.ops.topk import topk_scores
 
@@ -59,7 +67,6 @@ class SearchParams:
     max_iters: int = 0  # 0 -> derived from ef_search
     threshold: float = 0.0  # similarity cutoff on final results
     rerank_floor: float = 0.0  # approx-score floor to qualify for rerank
-    # (read by the scan tier's rerank, index/reader.py)
 
 
 @dataclasses.dataclass
@@ -69,8 +76,9 @@ class SearchResult:
     ids: torch.Tensor  # [Q, k] int64 (-1 pad)
     scores: torch.Tensor  # [Q, k] f32 (-inf pad)
     visited_count: torch.Tensor  # [Q] nodes scored
-    expanded_count: torch.Tensor  # [Q] nodes expanded
+    expanded_count: torch.Tensor  # [Q] nodes expanded (all layers)
     reranked_count: torch.Tensor  # [Q]
+    expanded_base_count: torch.Tensor  # [Q] base layer only
 
 
 def _new_neighbors(nb: torch.Tensor, pool: torch.Tensor,
@@ -93,6 +101,14 @@ def _new_neighbors(nb: torch.Tensor, pool: torch.Tensor,
 
 
 ScoreFn = Callable[[torch.Tensor], torch.Tensor]  # ids [Q, C] -> [Q, C]
+
+
+def _first_topk(x: torch.Tensor, k: int):
+    """Top-k along dim 1 where, among equal scores, the lower column wins
+    (a stable descending sort): the reference's `lax.top_k` order, which
+    `torch.topk` does not promise."""
+    s, i = torch.sort(x, dim=1, descending=True, stable=True)
+    return s[:, :k], i[:, :k]
 
 
 def exact_provider(queries: torch.Tensor, vectors: torch.Tensor,
@@ -164,10 +180,24 @@ def pq_provider(queries: torch.Tensor, codes: torch.Tensor,
     return score
 
 
+def hamming_provider(queries: torch.Tensor, codes: torch.Tensor,
+                     thresholds: torch.Tensor) -> ScoreFn:
+    """Hamming scoring for scalar (1/2/4-bit) quantization: the queries
+    are coded against `thresholds` exactly as the stored rows were, then
+    each candidate's packed code is XORed with its query's and the set
+    bits counted; score = 1/(1+distance)."""
+    qcodes = thermometer_codes(queries, thresholds).unsqueeze(1)  # [Q, 1, B]
+
+    def score(ids: torch.Tensor) -> torch.Tensor:
+        return hamming_scores(qcodes, codes[ids.clamp(min=0)])
+
+    return score
+
+
 def beam_search(
     adjacency: torch.Tensor,  # [N, M] int32
     live: torch.Tensor,  # [N] bool
-    entry: int,
+    entry: int | torch.Tensor,  # shared, or one per query ([Q] int64)
     score: ScoreFn,  # the approximate phase's provider
     q: int,  # number of queries
     accept: torch.Tensor,  # [N] bool result filter
@@ -176,6 +206,8 @@ def beam_search(
     R: int,
     max_iters: int,
     masked_results: bool = True,  # False -> skip the accept/live mask
+    first_among_ties: bool = False,  # select like the reference where
+    # scores tie in long runs (Hamming): the lower slot wins
 ):
     """Batched best-first graph search scoring through `score`.
 
@@ -187,9 +219,11 @@ def beam_search(
     dev = adjacency.device
     m = adjacency.shape[1]
     rows = torch.arange(q, device=dev)
+    topk = _first_topk if first_among_ties else (
+        lambda x, k: torch.topk(x, k, dim=1))
 
     cand_ids = torch.full((q, L), -1, dtype=torch.long, device=dev)
-    cand_ids[:, 0] = int(entry)
+    cand_ids[:, 0] = entry
     cand_scores = torch.full((q, L), NEG_INF, device=dev)
     cand_scores[:, 0] = score(cand_ids[:, :1])[:, 0]
     cand_expanded = torch.zeros((q, L), dtype=torch.bool, device=dev)
@@ -203,8 +237,7 @@ def beam_search(
     while it < max_iters and bool(active.any()):
         # ---- pick top-E unexpanded candidates per query ----------------
         pickable = ~cand_expanded & (cand_ids >= 0)
-        top_s, slots = torch.topk(
-            torch.where(pickable, cand_scores, NEG_INF), E, dim=1)
+        top_s, slots = topk(torch.where(pickable, cand_scores, NEG_INF), E)
         picked_ids = torch.gather(cand_ids, 1, slots)
         q_active = active & (top_s[:, 0] > NEG_INF)
         picked_valid = (top_s > NEG_INF) & q_active[:, None]
@@ -222,8 +255,7 @@ def beam_search(
         # ---- score new candidates, merge into the pool (top-L) ---------
         nb_scores = torch.where(nb_valid, score(nb), NEG_INF)
         visited_n += nb_valid.sum(1, dtype=torch.int32)
-        cand_scores, idx = torch.topk(
-            torch.cat([cand_scores, nb_scores], 1), L, dim=1)
+        cand_scores, idx = topk(torch.cat([cand_scores, nb_scores], 1), L)
         cand_ids = torch.gather(torch.cat([cand_ids, nb], 1), 1, idx)
         cand_expanded = torch.gather(
             torch.cat([cand_expanded, torch.zeros_like(nb_valid)], 1), 1, idx)
@@ -237,9 +269,15 @@ def beam_search(
         pool_scores = torch.where(ok, cand_scores, NEG_INF)
     else:
         pool_scores = cand_scores
-    res_scores, res_ids = topk_scores(pool_scores, cand_ids, R)
-    res_ids = torch.where(res_scores > NEG_INF, res_ids, -1)
+    res_scores, idx = topk(pool_scores, R)
+    res_ids = torch.where(res_scores > NEG_INF,
+                          torch.gather(cand_ids, 1, idx), -1)
     return res_ids, res_scores, visited_n, expanded_n
+
+
+# The hierarchy descent: a short beam over the upper layer (pool, expansions
+# per iteration, iterations), as the reference runs it.
+UPPER_POOL, UPPER_EXPANSIONS, UPPER_ITERS = 16, 4, 8
 
 
 def search(
@@ -256,36 +294,76 @@ def search(
     pq_center: torch.Tensor | None = None,  # [d] (EUCLIDEAN centering)
     pq_decoded: torch.Tensor | None = None,  # [N, d] bf16 decoded-PQ cache
     accept: torch.Tensor | None = None,  # [N] bool result filter
+    rerank_vectors: torch.Tensor | None = None,  # override rerank source
+    nvq: NVQVectors | None = None,  # rerank source decoded row by row
     has_tombstones: bool = True,  # False -> skip result masking when
     # unfiltered (clean graph: every pool entry is live)
+    upper_adjacency: torch.Tensor | None = None,  # hierarchy layer
+    scalar_codes: torch.Tensor | None = None,  # [N, B] uint8 packed codes
+    scalar_thresholds: torch.Tensor | None = None,  # [levels, d] f32
 ) -> SearchResult:
-    """Search over one graph segment, then the top-k and the `threshold`
-    cut. The provider is `pq_decoded` when the decoded cache is given,
-    else `pq` when codes are, else `exact` over `vectors`; PQ scores are
-    returned as they are (no device rerank: `rerank_src == "none"`)."""
+    """Two-phase search over one graph segment.
+
+    The approximate phase scores with the decoded cache when it is given,
+    else PQ codes, else scalar codes, else exact `vectors`. The rerank
+    phase rescores the top `k * overquery_factor` survivors exactly from
+    `nvq` (PQ codes only), else `rerank_vectors`, else `vectors`, after
+    the `rerank_floor` cut; without a source the approximate scores
+    stand. Then top-k and the `threshold` cut."""
+    rerank_src = None
+    ties = False
     if pq_decoded is not None or pq_codes is not None:
-        if vectors is not None:
-            raise NotImplementedError(
-                "the device rerank of PQ candidates against fp32 rows is "
-                'not ported yet (ROADMAP queue 1, "on_disk remnants")')
         if pq_decoded is not None:
             score = pq_decoded_provider(queries, pq_decoded, simf)
         else:
             score = pq_provider(queries, pq_codes, pq_codebooks, pq_center,
                                 simf)
+            if nvq is not None:
+                rerank_src = nvq.decode_rows
+        if rerank_src is None:
+            rows = rerank_vectors if rerank_vectors is not None else vectors
+            if rows is not None:
+                rerank_src = lambda ids: rows[ids]  # noqa: E731
+    elif scalar_codes is not None:
+        score = hamming_provider(queries, scalar_codes, scalar_thresholds)
+        ties = True  # a few hundred distinct scores at most
+        rerank_src = lambda ids: vectors[ids]  # noqa: E731
     else:
         score = exact_provider(queries, vectors, simf)
     masked_results = (accept is not None) or has_tombstones
     if accept is None:
         accept = live
+    qn = queries.shape[0]
     r = max(params.k * params.overquery_factor, params.k)
     ef = max(params.ef_search, r)
     e = params.expansions_per_iter
     iters = params.max_iters or max(8, (ef + e - 1) // e)
-    res_ids, res_scores, visited, expanded = beam_search(
-        adjacency, live, entry, score, queries.shape[0], accept,
+
+    upper_expanded = 0
+    if upper_adjacency is not None:
+        # hierarchy layer: a short beam on the coarse graph picks each
+        # query's base-layer entry point (HNSW-style descent)
+        up_ids, _, _, upper_expanded = beam_search(
+            upper_adjacency, live, entry, score, qn, accept,
+            L=UPPER_POOL, E=UPPER_EXPANSIONS, R=1, max_iters=UPPER_ITERS,
+            masked_results=False, first_among_ties=ties)
+        entry = torch.where(up_ids[:, 0] >= 0, up_ids[:, 0], entry)
+    res_ids, res_scores, visited, base_expanded = beam_search(
+        adjacency, live, entry, score, qn, accept,
         L=ef, E=e, R=r, max_iters=iters, masked_results=masked_results,
+        first_among_ties=ties,
     )
+
+    if rerank_src is not None:
+        qualify = res_ids >= 0
+        if params.rerank_floor > 0.0:  # 0.0 == disabled (reference default)
+            qualify &= res_scores >= params.rerank_floor
+        exact = batched_candidate_scores(
+            queries, rerank_src(res_ids.clamp(min=0)).float(), simf)
+        res_scores = torch.where(qualify, exact, NEG_INF)
+        reranked = qualify.sum(1, dtype=torch.int32)
+    else:
+        reranked = torch.zeros_like(visited)
     final_scores, final_ids = topk_scores(res_scores, res_ids, params.k)
     keep = final_scores > NEG_INF
     if params.threshold > 0.0:  # 0.0 == disabled (reference default)
@@ -294,6 +372,7 @@ def search(
         ids=torch.where(keep, final_ids, -1),
         scores=torch.where(keep, final_scores, NEG_INF),
         visited_count=visited,
-        expanded_count=expanded,
-        reranked_count=torch.zeros_like(visited),
+        expanded_count=base_expanded + upper_expanded,
+        reranked_count=reranked,
+        expanded_base_count=base_expanded,
     )

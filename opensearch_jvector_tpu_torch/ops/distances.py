@@ -115,6 +115,35 @@ def exact_scores(query: torch.Tensor, vectors: torch.Tensor,
     raise ValueError(f"unsupported space {space}")
 
 
+def popcount_sum(x: torch.Tensor) -> torch.Tensor:
+    """Set bits per row of packed uint8 codes: [..., B] -> [...] int32.
+
+    PyTorch has no population-count operator, so the bytes are read four at
+    a time as int32 words and counted with the usual masked shifts; a width
+    that is not a multiple of 4 is zero-padded here, not in the stored
+    codes. The arithmetic shifts' sign bits fall outside every mask."""
+    pad = (-x.shape[-1]) % 4
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    w = x.contiguous().view(torch.int32)
+    w = w - ((w >> 1) & 0x55555555)
+    w = (w & 0x33333333) + ((w >> 2) & 0x33333333)
+    w = (w + (w >> 4)) & 0x0F0F0F0F
+    w = w + (w >> 8)
+    w = (w + (w >> 16)) & 0x3F
+    return w.sum(-1, dtype=torch.int32)
+
+
+def hamming_scores(query_bits: torch.Tensor,
+                   vector_bits: torch.Tensor) -> torch.Tensor:
+    """Hamming score 1/(1+popcount(xor)) over packed uint8 codes.
+
+    query_bits [b] against vector_bits [n, b] -> [n]; with leading batch
+    dimensions the two broadcast ([Q, 1, b] against [Q, C, b] -> [Q, C])."""
+    pop = popcount_sum(torch.bitwise_xor(vector_bits, query_bits))
+    return 1.0 / (1.0 + pop.float())
+
+
 def host_candidate_scores(
     queries: np.ndarray,  # [Q, d] f32 (host)
     cand_vecs: np.ndarray,  # [Q, C, d] f32 (host)

@@ -441,3 +441,142 @@ def test_delete_merge_and_search_from_two_threads_on_card(card, corpus,
     assert recall_at_k(got.doc_ids, cpu.doc_ids, 10) >= 0.99
     idx.close()
     assert idx._pins == {} and idx._retired == set()
+
+
+# -- the other quantizers, anisotropic PQ and the hierarchy layer ----------------
+
+def test_nvq_transcode_on_card_matches_cpu(card):
+    """NVQ fit + encode and decode on CUDA tensors against the same on the
+    CPU: the device compiler may fuse a multiply-add the CPU keeps apart,
+    so the same grid point for >= 99 % of the subvectors and there bytes
+    equal on >= 99.9 % of the elements, never more than 1 apart; the
+    decode of given bytes within 2e-5 of the largest magnitude."""
+    from opensearch_jvector_tpu_torch.ops import nvq as nvq_ops
+
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((3000, 64))
+         * rng.uniform(0.2, 3.0, (1, 64))).astype(np.float32)
+    x -= x.mean(0)
+    cb, cp = nvq_ops.nvq_encode(torch.from_numpy(x), 4)
+    gb, gp = nvq_ops.nvq_encode(torch.from_numpy(x).to(card), 4)
+    assert gb.device.type == "cuda" and gb.dtype == torch.uint8
+    gb, gp = gb.cpu(), gp.cpu()
+    assert torch.equal(gp[..., 2:], cp[..., 2:])  # min, max
+    same = (gp[..., :2] == cp[..., :2]).all(-1)
+    assert same.float().mean() >= 0.99
+    diff = (gb.int() - cb.int()).abs()[same.repeat_interleave(16, 1)]
+    assert (diff == 0).float().mean() >= 0.999 and int(diff.max()) <= 1
+    mean = torch.from_numpy(rng.standard_normal(64).astype(np.float32))
+    want = nvq_ops.nvq_decode(cb, cp, mean, 4)
+    got = nvq_ops.nvq_decode(cb.to(card), cp.to(card), mean.to(card), 4).cpu()
+    assert float((got - want).abs().max()) <= 2e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4])
+def test_scalar_codes_and_hamming_on_card_match_cpu(bits, card):
+    """Bit packing and XOR + popcount are integer work: exact."""
+    from opensearch_jvector_tpu_torch.models import scalar
+    from opensearch_jvector_tpu_torch.ops.distances import hamming_scores
+
+    x = np.random.default_rng(bits).standard_normal((5000, 50)).astype(
+        np.float32)
+    state = scalar.train_scalar_quantizer(x, bits)
+    on_card = scalar.train_scalar_quantizer(torch.from_numpy(x).to(card),
+                                            bits)
+    np.testing.assert_array_equal(on_card.thresholds, state.thresholds)
+    want = scalar.quantize_vectors(state, torch.from_numpy(x))
+    got = scalar.quantize_vectors(state, torch.from_numpy(x).to(card))
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    q = want[:7].unsqueeze(1)
+    rows = want[:700].reshape(7, 100, -1)
+    assert torch.equal(hamming_scores(q.to(card), rows.to(card)).cpu(),
+                       hamming_scores(q, rows))
+
+
+def test_aniso_lloyd_step_on_card_matches_cpu(card):
+    """One anisotropic Lloyd step (scatter-adds and a batched solve) from
+    shared centroids: rtol 1e-3 / atol 1e-4 (atomic adds sum in another
+    order); the anisotropic encode: codes equal on >= 99.5 %."""
+    from opensearch_jvector_tpu_torch.models import pq
+    from opensearch_jvector_tpu_torch.ops import kmeans
+
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((4, 4000, 8)).astype(np.float32))
+    c = x[:, :64].clone() + 0.01
+    want = kmeans._lloyd_iter_aniso(x, c, 3.7)
+    got = kmeans._lloyd_iter_aniso(x.to(card), c.to(card), 3.7).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+    state = pq.ProductQuantization(codebooks=want, center=torch.zeros(32),
+                                   aniso_eta=3.7)
+    rows = x.transpose(0, 1).reshape(4000, 32)
+    codes = pq.encode_pq(state, rows)
+    on_card = pq.encode_pq(pq.ProductQuantization(
+        codebooks=want.to(card), center=torch.zeros(32, device=card),
+        aniso_eta=3.7), rows.to(card)).cpu()
+    assert (codes == on_card).float().mean() >= 0.995
+
+
+QUANT_MODES = {
+    "nvq": dict(quantization_type="nvq+pq"),
+    "nvq_on_disk": dict(quantization_type="nvq+pq", mode="on_disk"),
+    "1bit": dict(quantization_type="1bit"),
+    "4bit": dict(quantization_type="4bit"),
+    "aniso": dict(pq_anisotropic_threshold=0.5,
+                  similarity=SimilarityFunction.DOT_PRODUCT),
+    "hierarchy": dict(hierarchy_enabled=True),
+}
+
+
+@pytest.mark.parametrize("beam", [False, True], ids=["scan", "beam"])
+@pytest.mark.parametrize("mode", list(QUANT_MODES))
+def test_quantizer_index_on_card_matches_cpu(mode, beam, card, corpus,
+                                             tmp_path):
+    """Build on the card, search there and on the CPU over the same
+    directory: the same answers (recall of one against the other >= 0.99,
+    scores of shared ids rtol 1e-4), each within the mode's recall floor;
+    then a delete and a force_merge on the card."""
+    vectors, queries = corpus
+    cfg = DiskAnnConfig(dim=32, num_pq_subspaces=16, **QUANT_MODES[mode])
+    idx = VectorIndex(tmp_path, cfg, device=card)
+    for lo in (0, 3000):
+        idx.add_batch(np.arange(lo, lo + 3000), vectors[lo: lo + 3000])
+        idx.flush()
+    sc = SearchConfig(k=10, overquery_factor=10)
+    launches = adc_scan.launches
+    GLOBAL_SETTINGS.put(SETTING, 0 if beam else -1)
+    try:
+        got = idx.search(queries, sc)
+        cpu = VectorIndex(tmp_path, device="cpu").search(queries, sc)
+        if mode in ("aniso", "hierarchy"):  # PQ segments: the ADC scan tier
+            assert (adc_scan.launches > launches) != beam
+        else:
+            assert adc_scan.launches == launches
+        assert (got.expanded > 0) == (beam or mode in ("1bit", "4bit"))
+        assert got.reranked > 0 or (beam and mode in ("aniso", "hierarchy"))
+        truth = ground_truth_topk(torch.from_numpy(queries),
+                                  torch.from_numpy(vectors), 10,
+                                  cfg.similarity)
+        # one bit a dimension: 32 bits of signal a row
+        floor = 0.4 if mode == "1bit" else 0.9
+        assert recall_at_k(got.doc_ids, truth, 10) >= floor
+        assert recall_at_k(got.doc_ids, cpu.doc_ids, 10) >= 0.99
+        same = got.doc_ids == cpu.doc_ids
+        np.testing.assert_allclose(got.scores[same], cpu.scores[same],
+                                   rtol=1e-4, atol=1e-6)
+        doomed = np.arange(0, 6000, 7)
+        idx.delete(doomed)
+        merged = idx.force_merge()
+        seg = idx._reader(merged).seg
+        assert seg.device.type == "cuda"
+        assert seg.quantization_type == QUANT_MODES[mode].get(
+            "quantization_type", "pq")
+        after = idx.search(queries, sc)
+    finally:
+        GLOBAL_SETTINGS.put(SETTING, -1)
+    assert not np.isin(after.doc_ids, doomed).any()
+    keep = np.setdiff1d(np.arange(6000), doomed)
+    truth = keep[ground_truth_topk(torch.from_numpy(queries),
+                                   torch.from_numpy(vectors[keep]), 10,
+                                   cfg.similarity)]
+    assert recall_at_k(after.doc_ids, truth, 10) >= floor - 0.1
+    idx.close()

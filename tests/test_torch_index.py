@@ -3,9 +3,10 @@
 Index directories cross between the packages in both directions: the JAX
 package writes, the PyTorch package opens and searches (scan tier and beam
 tier), and the other way round. Segment files written by either package
-are byte-identical for the same state. The committed BWC fixtures open in
-the port where their quantization is ported, and raise NotImplementedError
-naming the ROADMAP item where it is not.
+are byte-identical for the same state. The committed BWC fixtures open
+and search in the port, and every quantization, anisotropic and hierarchy
+option of the config builds and searches (the per-mode parity is in
+test_torch_quantizers.py and test_torch_hierarchy.py).
 """
 
 import shutil
@@ -241,22 +242,52 @@ def test_bwc_v1_fixture_opens_and_searches():
 
 
 def test_bwc_v2_scalar_fixture_names_its_roadmap_item():
+    """The fixture's ROADMAP item ("Other quantizers") is done: the scalar
+    segment opens and searches."""
     seg_dir = FIXTURES / "bwc_v2_segment_root" / "v2seg"
-    with pytest.raises(NotImplementedError,
-                       match='ROADMAP queue 1, "Other quantizers"'):
-        tsegment.read_segment(seg_dir, "cpu")
+    v = np.load(FIXTURES / "bwc_v2_vectors.npy")
+    assert tsegment.check_integrity(seg_dir)
+    seg = tsegment.read_segment(seg_dir, "cpu")
+    assert seg.quantization_type in ("1bit", "2bit", "4bit")
+    assert seg.scalar_codes.shape[0] == seg.capacity()
+    res = SegmentReader(seg).search(v[:4], tconfig.SearchConfig(
+        k=3, ef_search=32))
+    assert (res.doc_ids[np.arange(4), 0] == np.arange(4)).all()
+    assert res.expanded > 0 and res.reranked > 0  # Hamming beam, fp32 rerank
 
 
-@pytest.mark.parametrize("kw, item", [
-    (dict(quantization_type="nvq+pq"), "Other quantizers"),
-    (dict(quantization_type="1bit"), "Other quantizers"),
-    (dict(hierarchy_enabled=True), "Other quantizers"),
-    (dict(pq_anisotropic_threshold=0.2), "Other quantizers"),
-])
-def test_unported_configs_raise(kw, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=item):
-        VectorIndex(tmp_path, tconfig.DiskAnnConfig(dim=D, **kw),
-                    device="cpu")
+@pytest.mark.parametrize("kw", [
+    dict(quantization_type="nvq+pq"),
+    dict(quantization_type="1bit"),
+    dict(hierarchy_enabled=True),
+    dict(pq_anisotropic_threshold=0.5,
+         similarity=SimilarityFunction.DOT_PRODUCT),
+], ids=["nvq", "1bit", "hierarchy", "aniso"])
+def test_unported_configs_raise(kw, corpus, tmp_path):
+    """No config is unported any more and none raises: each option that
+    the config accepts flushes, reopens and finds a stored row as its own
+    nearest neighbour."""
+    vectors = corpus[0][:PER_FLUSH]
+    idx = VectorIndex(tmp_path, tconfig.DiskAnnConfig(**{**CFG, **kw}),
+                      device="cpu")
+    idx.add_batch(np.arange(PER_FLUSH), vectors)
+    name = idx.flush()
+    seg = idx._reader(name).seg
+    assert seg.quantization_type == kw.get("quantization_type", "pq")
+    assert (seg.graph.upper_adjacency is not None) == bool(
+        kw.get("hierarchy_enabled"))
+    assert (seg.pqv is not None and seg.pqv.pq.aniso_eta is not None) == (
+        "pq_anisotropic_threshold" in kw)
+    idx.close()
+    sc = tconfig.SearchConfig(k=3, overquery_factor=20)
+    res = VectorIndex(tmp_path, device="cpu").search(vectors[:8], sc)
+    if kw.get("similarity") is None:
+        assert (res.doc_ids[:, 0] == np.arange(8)).all()
+    else:  # inner product: a longer row can outscore the query's own
+        truth = ground_truth_topk(torch.from_numpy(vectors[:8]),
+                                  torch.from_numpy(vectors), 3,
+                                  kw["similarity"])
+        assert recall_at_k(res.doc_ids, truth, 3) >= 0.9
 
 
 def test_absent_cuda_device_is_an_error():

@@ -538,16 +538,30 @@ def test_merge_mixed_deleted_segments(tmp_path):
 
 
 def test_nvq_merge_is_not_ported(tmp_path):
-    """The reference recomputes NVQ on merge; the port raises, naming the
-    ROADMAP item, at the index and at the merge."""
-    cfg = _cfg(quantization_type="nvq+pq", num_pq_subspaces=4)
-    with pytest.raises(NotImplementedError, match="Other quantizers"):
-        _index(tmp_path, cfg)
-    seg = tsegment.Segment(
-        name="s", config=cfg, graph=tbuilder.VamanaGraph.empty(64, 8, "cpu"),
-        docmap=tsegment.DocMap(np.empty(0, np.int64)))
-    with pytest.raises(NotImplementedError, match="Other quantizers"):
-        tmerge.merge_segments(tmp_path, [seg], "out")
+    """NVQ merges are ported (the name dates from when they raised). An
+    NVQ merge always rebuilds: the rows are decoded from the
+    sources' NVQ bytes, and NVQ and its auxiliary PQ are recomputed over
+    them, as the reference's merge does."""
+    cfg = _cfg(quantization_type="nvq+pq", num_pq_subspaces=4,
+               min_batch_size_for_quantization=128)
+    idx = _pinned(tmp_path, cfg)
+    v = _latent(np.random.default_rng(5), 500)
+    idx.add_batch(np.arange(300), v[:300])
+    idx.flush()
+    idx.add_batch(np.arange(300, 500), v[300:])
+    idx.flush()
+    idx.delete(np.arange(0, 50))
+    name = idx.force_merge()
+    seg = idx._reader(name).seg
+    assert seg.quantization_type == "nvq+pq" and seg.vectors is None
+    assert seg.docmap.num_ordinals == 450  # a rebuild compacts the ordinals
+    assert seg.nvq.bytes_.shape == (seg.capacity(), DIM)
+    assert seg.pqv.codes.shape[0] == seg.capacity()
+    rec = seg.nvq.decode()[:450].numpy()
+    assert np.mean((rec - v[50:]) ** 2) < 1e-3 * np.mean(v ** 2)
+    res = idx.search(v[60:68], tconfig.SearchConfig(k=3))
+    assert (res.doc_ids[:, 0] == np.arange(60, 68)).all()
+    assert not np.isin(res.doc_ids, np.arange(50)).any()
 
 
 def _two_flushes(tmp_path, cfg, first, second, seed):
