@@ -11,7 +11,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      (HMMA) instructions in decode_scan_kernel's SASS where cuobjdump is
      found;
   3. kernels: every kernel against its plain PyTorch version at the main
-     paths' shapes and at ragged shapes, with the kernel's time, the plain
+     paths' shapes (adc_scan also at phase 10's Q=1 and Q=32 over 2^18 x 64
+     codes) and at ragged shapes, with the kernel's time, the plain
      version's, one library call computing the same function, and the
      bound the card's peak rates set; adc_scan also in its fused mode (score
      map and validity mask in the epilogue) at the in_memory cell, held to
@@ -20,8 +21,34 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      add_batch + flush of --n rows in 4 flushes (4 segments that each take
      the scan tier), batched search at k=10, recall@10 against exact
      ground truth computed on the card, peak device memory, launches;
+  4-5 write and reopen the index as field "vec" of index "sift" under a
+     service root (<root>/sift/vec), which phases 10 and 8a reuse;
   5. reopen: the index directory reopened from commits.json returns the
      same top-10 ids;
+ 10. serving over REST, right after phase 5 on its directory:
+     KnnService(root, device="cuda") with the 2 ms micro-batcher; PUT /sift
+     attaches the four segments. Held: _count; --queries queries in 2-D
+     batched bodies of 512 equal to phase 4's in-process answers (ids, and
+     scores within 1e-6) with recall@10 at the target; a 40-id filter (the
+     exact fallback) equal to numpy's exact top-10 among them; a
+     100,000-id filter (ANN) returning only filtered docs (recall against
+     filtered exact search reported); a min_score radial query equal to
+     the exact set; rescore scores exact; a knn_score l2 script equal to
+     numpy's top-10 up to ties; ext.mmr returning 10 distinct ids; GET _doc
+     of 100 ids and docvalue_fields bit for bit; the stats counters' deltas
+     the requests imply; a second index /fresh built over REST (_bulk of
+     250,000 docs in bodies of 10,000, _flush to one 2^18 segment, 1,000
+     DELETE _doc, search: no deleted id, recall at the target over the
+     live docs), then DELETE /fresh; adc_scan launched. Reported: serial
+     single-vector latency p50/p99 over 200 requests (and of the same
+     queries searched in process, one at a time), QPS of 32 keep-alive
+     client threads over 8 s after a 4 s warm pass with the mean
+     dispatch_rows and the share of answers equal to the in-process ones,
+     REST ingest docs/s (with the service's JSON parse share) and flush
+     vec/s, peak device memory (while serving /sift, and over the phase), and a
+     torch.profiler trace of one 32-client second (device busy share; host
+     ms per request by stage from the service's stage timers). The gRPC
+     surface is not driven here: the card's machine has no grpcio;
   6. on_disk flat, GIST1M-shaped: 1,000,000 x 960 rows, PQ64, one flush
      (rows to the host row file), --queries queries in batches of 512 on
      (a) the decoded-cache rung (default breaker) and (b) the codes-only
@@ -32,6 +59,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      batch, which must agree with decode_scan's rung on the same queries),
      the routing crossover between the two kernels, and a profile of one
      512-query batch on each rung;
+ 6b. GIST parity: bench.py's own gist cell (100,000 x 960, cosine, latent
+     32, seed 41, PQ64, 512 queries: decoded bf16 scan, top-50, exact
+     rerank) on the port, recall@10 reported beside the JAX package's
+     0.9822 on the TPU (BENCH_r04.json);
   7. on_disk vamana: 500,000 x 128 rows in flushes of 300,000 (beam tier)
      and 200,000 (scan tier), searched under the default and the tight
      breaker, and reopened;
@@ -81,6 +112,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import gc
+import http.client
 import importlib.util
 import json
 import os
@@ -110,6 +142,9 @@ GIST_N, GIST_DIM, GIST_LATENT, GIST_M = 1_000_000, 960, 32, 64
 # searched at the default, reported, and at this factor (r = 200), held
 # to the target
 GIST_OVERQUERY = 20
+# phase 6b: bench.py's gist cell (sec_gist at its default N and Q) and the
+# recall the JAX package read there on the TPU (BENCH_r04.json)
+GIST_PARITY_N, GIST_PARITY_Q, GIST_PARITY_REF = 100_000, 512, 0.9822
 LUT_BATCH = 128  # below the fused route's 256-query bucket
 CROSSOVER_Q = (64, 128, 256, 512)
 # phase 7: two flushes of 128-d rows, capacities 2^19 (beam tier) and
@@ -583,7 +618,7 @@ def phase_9a(seed: int, n_queries: int, launches: dict) -> None:
     vectors, queries, _ = make_data(rng, n, n_queries, DIM)
     cfg = DiskAnnConfig(dim=DIM, quantization_type="nvq+pq")
     sc, deep = SearchConfig(k=K), SearchConfig(k=K, ef_search=BEAM_EF)
-    log(f"[9a/9] NVQ (nvq+pq, {cfg.nvq_num_subvectors} subvectors): {n} x "
+    log(f"[9a/10] NVQ (nvq+pq, {cfg.nvq_num_subvectors} subvectors): {n} x "
         f"{DIM} in flushes of {NVQ_FLUSHES}, {n_queries} queries, k={K}")
     # NVQ alone on one flush's rows
     block = torch.as_tensor(vectors[: NVQ_FLUSHES[0]], device="cuda")
@@ -709,7 +744,7 @@ def phase_9b(seed: int, launches: dict) -> None:
     rows_dev = torch.as_tensor(vectors, device="cuda")
     gt = ground_truth_topk(torch.as_tensor(queries, device="cuda"), rows_dev,
                            K, SimilarityFunction.EUCLIDEAN)
-    log(f"[9b/9] scalar quantization {SCALAR_MODES}: {SCALAR_N} x {DIM} in "
+    log(f"[9b/10] scalar quantization {SCALAR_MODES}: {SCALAR_N} x {DIM} in "
         f"one flush each, {VAMANA_QUERIES} queries, k={K}, overquery "
         f"{SCALAR_OVERQUERY}")
     adc_scan.launches = decode_scan.launches = 0
@@ -846,6 +881,469 @@ def phase_9c(seed: int, launches: dict, plain_pq_ms: int) -> None:
     torch.cuda.empty_cache()
 
 
+class Rest:
+    """One keep-alive HTTP/1.1 connection to the service; a status other
+    than `expect` raises."""
+
+    def __init__(self, port: int):
+        self.conn = http.client.HTTPConnection("127.0.0.1", port,
+                                               timeout=600)
+
+    def __call__(self, method: str, path: str, body=None, expect=200,
+                 raw: bytes | None = None):
+        if raw is None and body is not None:
+            raw = json.dumps(body).encode()
+        self.conn.request(method, path, raw,
+                          {"Content-Type": "application/json"})
+        r = self.conn.getresponse()
+        data = json.loads(r.read())
+        if r.status != expect:
+            raise AssertionError(f"{method} {path}: HTTP {r.status} "
+                                 f"{str(data)[:300]}")
+        return data
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def hit_arrays(hits: list) -> tuple[np.ndarray, np.ndarray]:
+    """A response's hits -> (ids, float32 scores)."""
+    return (np.array([h["_id"] for h in hits], np.int64),
+            np.array([h["_score"] for h in hits], np.float32))
+
+
+def rest_clients(port: int, bodies: list[bytes], n_cli: int,
+                 seconds: float) -> dict:
+    """`n_cli` keep-alive clients (threads of this process, as bench.py's
+    REST section runs them) sending single-vector knn bodies round-robin
+    for `seconds` -> {"served", "wall", "answers": [(body index, ids,
+    dispatch_rows)], "reconnects"}. A non-200 answer raises."""
+    import threading
+
+    stop = time.monotonic() + seconds
+    answers = [[] for _ in range(n_cli)]
+    reconnects = [0] * n_cli
+    errors = []
+
+    def client(ti):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        i = ti
+        while time.monotonic() < stop and not errors:
+            try:
+                conn.request("POST", "/sift/_search", bodies[i % len(bodies)],
+                             {"Content-Type": "application/json"})
+                r = conn.getresponse()
+                data = json.loads(r.read())
+            except (ConnectionError, OSError, http.client.HTTPException):
+                # a socket torn down under load: reconnect, as a load
+                # generator does (the attempt counts nothing)
+                conn.close()
+                conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                  timeout=600)
+                reconnects[ti] += 1
+                continue
+            if r.status != 200:
+                errors.append(f"HTTP {r.status} {str(data)[:300]}")
+                break
+            answers[ti].append((i % len(bodies),
+                                [h["_id"] for h in data["hits"]["hits"]],
+                                data["profile"]["dispatch_rows"]))
+            i += n_cli
+        conn.close()
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(n_cli)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.monotonic() - t0
+    if errors:
+        raise AssertionError(f"a concurrent search failed: {errors[0]}")
+    flat = [a for per in answers for a in per]
+    return {"served": len(flat), "wall": wall, "answers": flat,
+            "reconnects": sum(reconnects)}
+
+
+def phase_10(root: str, vectors, queries, mem_ids, mem_scores, truth, basis,
+             seed: int, smi: str, launches: dict) -> None:
+    """Serving over REST on phase 4's index directory: see the module
+    docstring."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from opensearch_jvector_tpu_torch.api.config import SearchConfig
+    from opensearch_jvector_tpu_torch.api.stats import STATS, Counter
+    from opensearch_jvector_tpu_torch.ops.adc_kernel import adc_scan
+    from opensearch_jvector_tpu_torch.ops.distances import SimilarityFunction
+    from opensearch_jvector_tpu_torch.ops.pq_scan_kernel import decode_scan
+    from opensearch_jvector_tpu_torch.service.http import STAGES, KnnService
+    from opensearch_jvector_tpu_torch.utils.ground_truth import (
+        ground_truth_topk,
+        recall_at_k,
+    )
+
+    n, nq = vectors.shape[0], queries.shape[0]
+    n_seg = FLUSHES
+    log(f"[10/10] serving over REST: KnnService(device=\"cuda\") attaches "
+        f"phase 4's {n} x {DIM} index as /sift ({n_seg} segments); {smi}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    adc_scan.launches = decode_scan.launches = 0
+    t_phase = time.monotonic()
+    svc = KnnService(root, device="cuda", batch_window_ms=2.0)
+    svc.start()
+    rest = Rest(svc.port)
+    mgr = svc.manager
+    mapping = {"properties": {"vec": {"type": "knn_vector",
+                                      "dimension": DIM}}}
+    try:
+        t0 = time.monotonic()
+        rest("PUT", "/sift", {"mappings": mapping})
+        count = rest("GET", "/sift/_count")["count"]
+        knn = {"vec": {"vector": queries[0].tolist(), "k": K}}
+        rest("POST", "/sift/_search", {"query": {"knn": knn}})  # loads
+        log(f"  PUT /sift + first search (segment loads): "
+            f"{time.monotonic() - t0:.2f} s; _count {count}")
+        if count != n:
+            raise AssertionError(f"_count {count} != {n}")
+        keys = (Counter.KNN_QUERY_COUNT, Counter.KNN_QUERY_WITH_FILTER_COUNT,
+                Counter.SCRIPT_QUERY_REQUESTS)
+        stats0 = STATS.snapshot()
+        expect = dict.fromkeys(keys, 0)
+
+        # batched bodies: the in-process answers of phase 4, batch by batch
+        ids, scores = [], []
+        t0 = time.monotonic()
+        for s in range(0, nq, BATCH):
+            out = rest("POST", "/sift/_search", {"size": K, "query": {"knn": {
+                "vec": {"vector": queries[s: s + BATCH].tolist(), "k": K}}}})
+            for r in out["responses"]:
+                i_, s_ = hit_arrays(r["hits"]["hits"])
+                ids.append(i_)
+                scores.append(s_)
+        wall = time.monotonic() - t0
+        ids, scores = np.stack(ids), np.stack(scores)
+        expect[Counter.KNN_QUERY_COUNT] += nq * n_seg
+        same_ids = bool((ids == mem_ids).all())
+        score_gap = float(np.abs(scores - mem_scores).max())
+        recall = recall_at_k(ids, truth, K)
+        log(f"  batched bodies of {BATCH}: {nq} queries in {wall:.2f} s = "
+            f"{1000 * wall / nq:.4f} ms/query over REST; ids equal to "
+            f"phase 4's in-process search: {same_ids}, largest score gap "
+            f"{score_gap:.3e} (limit 1e-6), recall@{K} {recall:.4f}")
+        if not same_ids or score_gap > 1e-6 or recall < RECALL_TARGET:
+            raise AssertionError("batched REST answers differ from the "
+                                 "in-process search")
+
+        frng = np.random.default_rng(seed + 100)
+        q = queries[1]
+        # restrictive filter: 40 ids (<= k * overquery = 50): exact fallback
+        flt = np.sort(frng.choice(n, 40, replace=False))
+        out = rest("POST", "/sift/_search", {"query": {"knn": {"vec": {
+            "vector": q.tolist(), "k": K, "filter": flt.tolist()}}}})
+        got, got_s = hit_arrays(out["hits"]["hits"])
+        d2 = ((vectors[flt].astype(np.float64) - q) ** 2).sum(-1)
+        order = np.argsort(d2, kind="stable")[:K]
+        want = flt[order]
+        ok = (np.array_equal(got, want)
+              and np.allclose(got_s, 1.0 / (1.0 + d2[order]), rtol=1e-5))
+        log(f"  restrictive filter (40 ids, exact fallback): ids equal to "
+            f"numpy's exact top-{K}: {ok}")
+        if not ok:
+            raise AssertionError(f"exact fallback: {got} != {want}")
+
+        # broad filter: 100,000 ids (a tenth of a smaller --n), the ANN
+        # path with the accept mask
+        n_broad = min(100_000, n // 10)
+        flt = np.sort(frng.choice(n, n_broad, replace=False))
+        qb = queries[:32]
+        out = rest("POST", "/sift/_search", {"size": K, "query": {"knn": {
+            "vec": {"vector": qb.tolist(), "k": K,
+                    "filter": flt.tolist()}}}})
+        got = np.stack([hit_arrays(r["hits"]["hits"])[0]
+                        for r in out["responses"]])
+        expect[Counter.KNN_QUERY_COUNT] += 32 * n_seg
+        expect[Counter.KNN_QUERY_WITH_FILTER_COUNT] += 32 * n_seg
+        gt_f = flt[ground_truth_topk(
+            torch.as_tensor(qb, device="cuda"),
+            torch.as_tensor(vectors[flt], device="cuda"), K,
+            SimilarityFunction.EUCLIDEAN)]
+        inside = bool(np.isin(got, flt).all())
+        log(f"  broad filter ({n_broad} ids, ANN): every hit in the filter: "
+            f"{inside}, recall@{K} against filtered exact search "
+            f"{recall_at_k(got, gt_f, K):.4f} over 32 queries")
+        if not inside or got.shape != (32, K):
+            raise AssertionError("broad filter returned a doc outside it")
+
+        # radial: a floor between the 500th and 501st exact scores (float64
+        # on the host); docs within 1e-6 of the floor may fall either way
+        d2 = ((vectors.astype(np.float64) - q) ** 2).sum(-1)
+        exact = 1.0 / (1.0 + d2)
+        top = np.sort(exact)[::-1][:501]
+        floor = float((top[499] + top[500]) / 2.0)
+        out = rest("POST", "/sift/_search", {"size": 10_000, "query": {
+            "knn": {"vec": {"vector": q.tolist(), "min_score": floor}}}})
+        got, got_s = hit_arrays(out["hits"]["hits"])
+        hit = np.zeros(n, bool)
+        hit[got] = True
+        must = exact >= floor + 1e-6
+        may = exact >= floor - 1e-6
+        ok = (bool((got_s >= floor).all()) and bool(hit[must].all())
+              and not bool((hit & ~may).any()))
+        log(f"  radial min_score {floor:.6f}: {got.size} hits, all at or "
+            f"above the floor; the exact set holds {int(must.sum())} docs "
+            f"(+{int((may & ~must).sum())} within 1e-6 of the floor), hit "
+            f"set equal to it: {ok}")
+        if not ok:
+            raise AssertionError("radial search missed the exact set")
+
+        # rescore: the candidates' exact fp32 scores
+        out = rest("POST", "/sift/_search", {"size": K, "query": {"knn": {
+            "vec": {"vector": qb.tolist(), "k": K,
+                    "rescore": {"oversample_factor": 2.0}}}}})
+        got = [hit_arrays(r["hits"]["hits"]) for r in out["responses"]]
+        expect[Counter.KNN_QUERY_COUNT] += 32 * n_seg
+        check_exact_scores("rescore", np.stack([g[0] for g in got]),
+                           np.stack([g[1] for g in got]), qb,
+                           torch.as_tensor(vectors, device="cuda"))
+        log("  rescore (oversample 2.0): every score the doc's exact fp32 "
+            "score")
+
+        # knn_score script over every row
+        out = rest("POST", "/sift/_search", {"size": K, "query": {
+            "script_score": {"script": {
+                "source": "knn_score", "lang": "knn", "params": {
+                    "field": "vec", "space_type": "l2",
+                    "query_value": q.tolist()}}}}})
+        expect[Counter.SCRIPT_QUERY_REQUESTS] += 1
+        got, got_s = hit_arrays(out["hits"]["hits"])
+        want = np.argsort(d2, kind="stable")[:K]
+        tied = np.isclose(1.0 / (1.0 + d2[got]),
+                          1.0 / (1.0 + d2[want]), rtol=1e-6)
+        ok = bool((got == want).all() or tied.all())
+        log(f"  knn_score l2 script over {n} rows: ids equal to numpy's "
+            f"exact top-{K} up to ties: {ok}")
+        if not ok:
+            raise AssertionError(f"script_score: {got} != {want}")
+
+        # MMR
+        out = rest("POST", "/sift/_search", {"size": K, "query": {"knn": {
+            "vec": {"vector": q.tolist(), "k": K}}},
+            "ext": {"mmr": {"diversity": 0.5}}})
+        expect[Counter.KNN_QUERY_COUNT] += n_seg
+        got = hit_arrays(out["hits"]["hits"])[0]
+        log(f"  ext.mmr diversity 0.5: {len(set(got.tolist()))} distinct "
+            f"ids of {K}")
+        if len(set(got.tolist())) != K:
+            raise AssertionError(f"MMR returned {got}")
+
+        # derived source: GET _doc and docvalue_fields, bit for bit
+        sample = frng.choice(n, 100, replace=False)
+        exact_docs = all(
+            np.array_equal(np.asarray(rest(
+                "GET", f"/sift/_doc/{d}")["_source"]["vec"], np.float32),
+                vectors[d]) for d in sample)
+        out = rest("POST", "/sift/_search", {"size": K,
+                                             "docvalue_fields": ["vec"],
+                                             "query": {"knn": knn}})
+        expect[Counter.KNN_QUERY_COUNT] += n_seg
+        exact_dv = all(np.array_equal(
+            np.asarray(h["fields"]["vec"][0], np.float32), vectors[h["_id"]])
+            for h in out["hits"]["hits"])
+        log(f"  derived source: GET _doc of 100 ids bit for bit: "
+            f"{exact_docs}; docvalue_fields bit for bit: {exact_dv}")
+        if not (exact_docs and exact_dv):
+            raise AssertionError("a read-back vector differs")
+
+        after = STATS.snapshot()
+        deltas = {c: after[c.value] - stats0[c.value] for c in keys}
+        log(f"  stats deltas {[(c.value, deltas[c]) for c in keys]}, "
+            f"expected {[expect[c] for c in keys]}")
+        if deltas != expect:
+            raise AssertionError("the stats counters moved otherwise")
+
+        # serial single-vector latency (the micro-batcher's 2 ms window is
+        # part of every answer)
+        lat = []
+        for i in range(200):
+            body = {"query": {"knn": {"vec": {"vector": queries[i].tolist(),
+                                              "k": K}}}}
+            t0 = time.perf_counter()
+            rest("POST", "/sift/_search", body)
+            lat.append(1000 * (time.perf_counter() - t0))
+        p50, p99 = np.percentile(lat, [50, 99])
+        # the same 200 queries in process, one at a time: the service's
+        # share of the latency is the difference
+        idx, sc = mgr.get("sift")["vec"], SearchConfig(k=K)
+        lat_in = []
+        for i in range(200):
+            t0 = time.perf_counter()
+            idx.search(queries[i: i + 1], sc)
+            lat_in.append(1000 * (time.perf_counter() - t0))
+        i50, i99 = np.percentile(lat_in, [50, 99])
+        log(f"  serial single-vector latency over 200 requests: p50 "
+            f"{p50:.3f} ms, p99 {p99:.3f} ms; in process "
+            f"(VectorIndex.search of one query, 4 segments): p50 "
+            f"{i50:.3f} ms, p99 {i99:.3f} ms ({smi})")
+
+        # 32 concurrent keep-alive clients, micro-batched
+        pool = min(nq, 2048)
+        bodies = [json.dumps({"query": {"knn": {"vec": {
+            "vector": queries[i].tolist(), "k": K}}}}).encode()
+            for i in range(pool)]
+        rest_clients(svc.port, bodies, 32, 4.0)  # warm pass
+        run = rest_clients(svc.port, bodies, 32, 8.0)
+        qps = run["served"] / run["wall"]
+        rows = np.array([a[2] for a in run["answers"]])
+        same = np.mean([a[1] == mem_ids[a[0]].tolist()
+                        for a in run["answers"]])
+        log(f"  32 clients, MicroBatcher 2 ms: {run['served']} answers in "
+            f"{run['wall']:.2f} s = {qps:.1f} QPS, mean dispatch_rows "
+            f"{rows.mean():.2f} (max {rows.max()}), answers whose ids equal "
+            f"phase 4's in-process answer {same:.4f}, reconnects "
+            f"{run['reconnects']} ({smi})")
+
+        # one profiled second of the same load
+        stage0 = dict(mgr.stage_seconds)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prun = rest_clients(svc.port, bodies, 32, 1.0)
+            torch.cuda.synchronize()
+        ranges = ("query",) + ON_DISK_SPANS
+        dev = [(e.self_device_time_total, e.key, e.count)
+               for e in prof.key_averages()
+               if e.self_cpu_time_total == 0 and e.key not in ranges
+               and e.self_device_time_total > 0]
+        busy_us = sum(r[0] for r in dev)
+        served = max(prun["served"], 1)
+        stage_ms = {k: 1000 * (mgr.stage_seconds[k] - stage0[k]) / served
+                    for k in STAGES}
+        log(f"  profile of a 32-client second: {prun['served']} answers in "
+            f"{prun['wall']:.2f} s, device busy {busy_us / 1000:.2f} ms = "
+            f"{100 * busy_us / (1e6 * prun['wall']):.1f}% of wall; host ms "
+            f"per request by stage (thread time, summed over the request's "
+            f"threads): " + ", ".join(f"{k} {v:.3f}"
+                                      for k, v in stage_ms.items()))
+        for us, key, cnt in sorted(dev, reverse=True)[:6]:
+            log(f"    {us / 1000:9.3f} ms  x{cnt:<5d} {key[:90]}")
+
+        serving_peak = torch.cuda.max_memory_allocated()
+        # a second index, built over REST
+        n_f, body_docs, n_del = 250_000, 10_000, 1_000
+        fresh = more_rows(np.random.default_rng(seed + 101), basis, n_f)
+        rest("PUT", "/fresh", {"mappings": mapping})
+        parse0 = mgr.stage_seconds["json_parse"]
+        t0 = time.monotonic()
+        for s in range(0, n_f, body_docs):
+            docs = [{"_id": i, "vec": fresh[i].tolist()}
+                    for i in range(s, s + body_docs)]
+            rest("POST", "/fresh/_bulk", {"docs": docs})
+        bulk_s = time.monotonic() - t0
+        bulk_parse_s = mgr.stage_seconds["json_parse"] - parse0
+        t0 = time.monotonic()
+        seg = rest("POST", "/fresh/_flush")["segment"]
+        flush_s = time.monotonic() - t0
+        cap = mgr.get("fresh")["vec"]._reader(seg).seg.capacity()
+        doomed = np.sort(np.random.default_rng(seed + 102).choice(
+            n_f, n_del, replace=False))
+        t0 = time.monotonic()
+        for d in doomed:
+            rest("DELETE", f"/fresh/_doc/{d}")
+        del_s = time.monotonic() - t0
+        count = rest("GET", "/fresh/_count")["count"]
+        out = rest("POST", "/fresh/_search", {"size": K, "query": {"knn": {
+            "vec": {"vector": queries[:BATCH].tolist(), "k": K}}}})
+        got = np.stack([hit_arrays(r["hits"]["hits"])[0]
+                        for r in out["responses"]])
+        live = np.setdiff1d(np.arange(n_f), doomed)
+        f_truth = live_truth(queries[:BATCH], fresh, live, K)
+        f_recall = recall_at_k(got, f_truth, K)
+        no_dead = not np.isin(got, doomed).any()
+        log(f"  /fresh over REST: _bulk of {n_f} docs in bodies of "
+            f"{body_docs}: {bulk_s:.2f} s = {n_f / bulk_s:.0f} docs/s "
+            f"(the service's JSON parse {bulk_parse_s:.2f} s of it); "
+            f"_flush {flush_s:.2f} s = {n_f / flush_s:.0f} vec/s (segment "
+            f"{seg}, capacity {cap}); {n_del} DELETE _doc in {del_s:.2f} s; "
+            f"_count {count}; {BATCH} queries: no deleted id {no_dead}, "
+            f"recall@{K} {f_recall:.4f} over the live docs ({smi})")
+        rest("DELETE", "/fresh")
+        if (cap != 1 << 18 or count != n_f - n_del or not no_dead
+                or f_recall < RECALL_TARGET):
+            raise AssertionError("the index built over REST is wrong")
+    finally:
+        rest.close()
+        svc.stop()
+        mgr.close()
+    launches["serving"] = kernel_counts(adc_scan, decode_scan)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  phase 10: {time.monotonic() - t_phase:.1f} s, peak device "
+        f"memory {peak} B = {peak / 2**30:.2f} GiB over the phase "
+        f"(/fresh's flush included), {serving_peak} B while serving /sift; "
+        f"launches {launches['serving']}")
+    if launches["serving"]["adc_scan"] <= 0:
+        raise AssertionError("serving never launched adc_scan")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_6b(n_queries: int) -> float:
+    """bench.py's gist cell (sec_gist) on the port: see the module
+    docstring -> recall@K."""
+    from opensearch_jvector_tpu_torch.index.reader import _decoded_scan_scores
+    from opensearch_jvector_tpu_torch.models import pq as pq_mod
+    from opensearch_jvector_tpu_torch.ops.distances import (
+        SimilarityFunction,
+        batched_candidate_scores,
+    )
+    from opensearch_jvector_tpu_torch.utils.ground_truth import (
+        ground_truth_topk,
+        recall_at_k,
+    )
+
+    gn, gdim, glat = GIST_PARITY_N, GIST_DIM, GIST_LATENT
+    # bench.py's draws, in its order and dtypes
+    grng = np.random.default_rng(41)
+    ga = grng.standard_normal((glat, gdim)).astype(np.float32)
+    ga /= np.sqrt(glat)
+    gv = (grng.standard_normal((gn, glat)).astype(np.float32) @ ga
+          + 0.05 * grng.standard_normal((gn, gdim)).astype(np.float32))
+    gq = (grng.standard_normal((n_queries, glat)).astype(np.float32) @ ga
+          + 0.05 * grng.standard_normal((n_queries, gdim)).astype(np.float32))
+    cos = SimilarityFunction.COSINE
+    vd, qd = torch.as_tensor(gv, device="cuda"), torch.as_tensor(
+        gq, device="cuda")
+    del gv
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    pq = pq_mod.train_pq(vd, cos, num_subspaces=GIST_M)
+    pqv = pq_mod.PQVectors(pq=pq, codes=pq_mod.encode(pq, vd, cos))
+    dec = pqv.decode_bf16()
+    sq = torch.linalg.vecdot(dec.float(), dec.float())
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    scan = _decoded_scan_scores(qd, dec, sq, cos)
+    _, top_i = torch.topk(scan, K * 5, dim=1)
+    exact = batched_candidate_scores(qd, vd[top_i], cos)
+    _, idx = torch.topk(exact, K, dim=1)
+    ids = torch.gather(top_i, 1, idx).cpu().numpy()
+    truth = ground_truth_topk(qd, vd, K, cos)
+    recall = recall_at_k(ids, truth, K)
+    gap = recall - GIST_PARITY_REF
+    log(f"[6b/10] GIST parity: bench.py's gist cell ({gn} x {gdim}, cosine, "
+        f"latent {glat}, seed 41, PQ{GIST_M}, {n_queries} queries: decoded "
+        f"bf16 scan, top-{K * 5}, exact rerank) on the port: PQ train + "
+        f"encode + decode {build_s:.1f} s, recall@{K} {recall:.4f}; "
+        f"BENCH_r04's gist960_recall_at_k {GIST_PARITY_REF}, gap "
+        f"{gap:+.4f} (a gap beyond 0.01 is a port fault)")
+    del vd, qd, dec, sq, scan, exact, pqv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return recall
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -890,7 +1388,7 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    log(f"[1/9] device: {kind} (torch {torch.__version__}, "
+    log(f"[1/10] device: {kind} (torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} visible)")
     log(smi)
 
@@ -899,7 +1397,7 @@ def main() -> int:
     names = ("adc_scan", "decode_scan", "vector_store")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(_kernels.build, names)))
-    log(f"[2/9] build: {', '.join(p.name for p in libs.values())} in "
+    log(f"[2/10] build: {', '.join(p.name for p in libs.values())} in "
         f"{time.monotonic() - t0:.1f} s (compilers started together)")
     for name in names:
         if name not in _kernels.BUILD_LOGS:
@@ -909,17 +1407,26 @@ def main() -> int:
     log(f"  sass: {hmma_count(libs['decode_scan'])}")
 
     # ---- 3. kernels vs plain ----------------------------------------------
-    log("[3/9] kernels vs plain PyTorch on the card")
+    log("[3/10] kernels vs plain PyTorch on the card")
     m = default_num_subspaces(DIM)  # the subspaces the flushes train
     adc_rec = check_adc_scan(BATCH, m, 256, 1 << 18, args.seed, reps=20,
                              plain_reps=3, library=True, fused=True)
     check_adc_scan(3, 8, 64, 1000, args.seed + 1, reps=20, plain_reps=20)
     # the on_disk phases' shapes: the Q=1 codes_sq table over phase 6's
-    # 2^20 codes and phase 7's 2^18, and the LUT rung's batch in phase 6
+    # 2^20 codes and phase 7's 2^18 (also a serial request of phase 10),
+    # the LUT rung's batch in phase 6, and a coalesced dispatch of phase 10
+    serving_recs = {}
     for i, (q, m_, n) in enumerate([(1, GIST_M, 1 << 20), (1, m, 1 << 18),
-                                    (LUT_BATCH, GIST_M, 1 << 20)]):
-        check_adc_scan(q, m_, 256, n, args.seed + 10 + i, reps=5,
-                       plain_reps=2)
+                                    (LUT_BATCH, GIST_M, 1 << 20),
+                                    (32, m, 1 << 18)]):
+        rec = check_adc_scan(q, m_, 256, n, args.seed + 10 + i, reps=5,
+                             plain_reps=2)
+        if (m_, n) == (m, 1 << 18):
+            serving_recs[q] = rec
+    log("  adc_scan at the serving shapes over 2^18 x "
+        f"{m} codes: " + "; ".join(
+            f"Q={q}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms)" for q, r in serving_recs.items()))
     dsub = GIST_DIM // GIST_M
     dec_rec = check_decode_scan(BATCH, 1 << 20, GIST_M, 256, dsub,
                                 args.seed + 2, reps=5, plain_reps=2,
@@ -934,13 +1441,15 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     vectors, queries, basis = make_data(rng, args.n, args.queries, DIM)
     sc = SearchConfig(k=K)
-    log(f"[4/9] in_memory path: {args.n} x {DIM} in {FLUSHES} flushes, "
+    log(f"[4/10] in_memory path: {args.n} x {DIM} in {FLUSHES} flushes, "
         f"{args.queries} queries in batches of {BATCH}, k={K}")
     torch.cuda.reset_peak_memory_stats()
     launches = {}
-    # phase 8a comes back to this directory, and removes it
+    # phases 10 and 8a come back to this directory (the service's root,
+    # with the index as field "vec" of /sift), and 8a removes it
     mem_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
-    root = mem_dir.name
+    sift_dir = os.path.join(mem_dir.name, "sift", "vec")
+    root = sift_dir
     index = VectorIndex(root, DiskAnnConfig(dim=DIM), device="cuda")
     bounds = np.linspace(0, args.n, FLUSHES + 1).astype(int)
     plain_pq_ms = None
@@ -981,13 +1490,14 @@ def main() -> int:
         raise AssertionError(f"recall@{K} {recall} < {RECALL_TARGET}")
     if launches["in_memory"]["adc_scan"] <= 0:
         raise AssertionError("the search path never launched adc_scan")
+    mem_ids, mem_scores, mem_gt = ids, scores, gt
 
     # ---- 5. reopen -------------------------------------------------------
     index.close()
     reopened = VectorIndex(root, device="cuda")
     again = reopened.search(queries[: BATCH], sc).doc_ids
     same = bool((again == ids[: BATCH]).all())
-    log(f"[5/9] reopen from commits.json: {len(reopened.segment_names)} "
+    log(f"[5/10] reopen from commits.json: {len(reopened.segment_names)} "
         f"segments, identical top-{K} ids for {BATCH} "
         f"queries: {same}")
     if not same:
@@ -996,6 +1506,11 @@ def main() -> int:
     del index, reopened
     gc.collect()
     torch.cuda.empty_cache()
+
+    # ---- 10. serving over REST on phase 4's directory --------------------
+    phase_10(mem_dir.name, vectors, queries, mem_ids, mem_scores, mem_gt,
+             basis, args.seed, smi, launches)
+    del mem_ids, mem_scores, mem_gt
 
     # ---- 6. on_disk flat, GIST1M-shaped --------------------------------------
     crossover = {}
@@ -1008,7 +1523,7 @@ def main() -> int:
         grng = np.random.default_rng(args.seed + 41)
         t0 = time.monotonic()
         gv, gq = make_gist(grng, GIST_N, args.queries)
-        log(f"[6/9] on_disk flat GIST1M-shaped: {GIST_N} x {GIST_DIM}, "
+        log(f"[6/10] on_disk flat GIST1M-shaped: {GIST_N} x {GIST_DIM}, "
             f"PQ{GIST_M}, {args.queries} queries in batches of {BATCH}, "
             f"k={K} (data made in {time.monotonic() - t0:.1f} s)")
         gt = ground_truth_topk(torch.as_tensor(gq, device="cuda"),
@@ -1136,12 +1651,13 @@ def main() -> int:
             raise AssertionError(f"rungs disagree: recall gap {gap}")
     del gq, gt
     gc.collect()
+    phase_6b(GIST_PARITY_Q)
 
     # ---- 7. on_disk vamana ----------------------------------------------------
     vrng = np.random.default_rng(args.seed + 7)
     n_v = sum(VAMANA_FLUSHES)
     vv, vq, _ = make_data(vrng, n_v, VAMANA_QUERIES, DIM)
-    log(f"[7/9] on_disk vamana: {n_v} x {DIM} in flushes of "
+    log(f"[7/10] on_disk vamana: {n_v} x {DIM} in flushes of "
         f"{VAMANA_FLUSHES}, {VAMANA_QUERIES} queries, k={K}")
     gt = ground_truth_topk(torch.as_tensor(vq, device="cuda"),
                            torch.as_tensor(vv, device="cuda"), K,
@@ -1216,10 +1732,10 @@ def main() -> int:
     n_del, n_add = n // DELETE_SHARE, n // ADD_SHARE
     n_upd = n_add // UPDATE_SHARE
     n_new = n_add - n_upd
-    log(f"[8a/9] in_memory deletes and merges on phase 4's index directory: "
+    log(f"[8a/10] in_memory deletes and merges on phase 4's index directory: "
         f"delete {n_del}, then add {n_new} new docs and {n_upd} updates")
     # the default merge policy: tiered, at most 4 segments, 4 a merge
-    index = VectorIndex(mem_dir.name, device="cuda")
+    index = VectorIndex(sift_dir, device="cuda")
     drng = np.random.default_rng(args.seed + 8)
     doomed = drng.choice(n, n_del, replace=False)
     live = np.ones(n + n_new, bool)
@@ -1364,7 +1880,7 @@ def main() -> int:
     launches["in_memory_force_merged"] = kernel_counts(adc_scan,
                                                        decode_scan)
     index.close()
-    again = VectorIndex(mem_dir.name, device="cuda")
+    again = VectorIndex(sift_dir, device="cuda")
     same = bool((again.search(queries[:BATCH], deep).doc_ids
                  == ids[:BATCH]).all())
     log(f"  reopen: {again.segment_names}, identical top-{K} ids for "
@@ -1398,7 +1914,7 @@ def main() -> int:
     doomed = np.random.default_rng(args.seed + 9).choice(
         n_v, n_v // DELETE_SHARE, replace=False)
     keep = np.setdiff1d(np.arange(n_v), doomed)
-    log(f"[8b/9] on_disk vamana deletes and force_merge: delete "
+    log(f"[8b/10] on_disk vamana deletes and force_merge: delete "
         f"{doomed.size} of {n_v} docs")
     truth = live_truth(vq, vv, keep, K)
     root = vamana_dir.name

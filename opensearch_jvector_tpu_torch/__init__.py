@@ -1,7 +1,8 @@
 """PyTorch + CUDA port of the DiskANN vector search engine.
 
 Mirrors the layout of `opensearch_jvector_tpu` (ops/, models/, index/,
-api/, utils/) so each module's counterpart sits at the same relative path.
+query/, service/, grpc/, api/, utils/) so each module's counterpart sits
+at the same relative path.
 Plain tensor code is PyTorch; the fused ADC scan is a hand-written CUDA
 kernel (`csrc/adc_scan.cu`, bound in `ops/adc_kernel.py`).
 
@@ -16,3 +17,43 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
+
+__all__ = [
+    "DiskAnnConfig",
+    "SearchConfig",
+    "SimilarityFunction",
+    "VectorIndex",
+    "KnnService",
+    "parse_knn_query",
+    "execute_knn_query",
+]
+
+
+def __getattr__(name):  # lazy: the service and query layers load on use
+    if name in ("DiskAnnConfig", "SearchConfig"):
+        from opensearch_jvector_tpu_torch.api import config as _c
+
+        return getattr(_c, name)
+    if name == "SimilarityFunction":
+        from opensearch_jvector_tpu_torch.ops.distances import (
+            SimilarityFunction,
+        )
+
+        return SimilarityFunction
+    if name == "VectorIndex":
+        from opensearch_jvector_tpu_torch.index.index import VectorIndex
+
+        return VectorIndex
+    if name == "KnnService":
+        from opensearch_jvector_tpu_torch.service.http import KnnService
+
+        return KnnService
+    if name == "parse_knn_query":
+        from opensearch_jvector_tpu_torch.query.builder import parse_knn_query
+
+        return parse_knn_query
+    if name == "execute_knn_query":
+        from opensearch_jvector_tpu_torch.query.knn import execute_knn_query
+
+        return execute_knn_query
+    raise AttributeError(name)

@@ -125,3 +125,14 @@ class SettingsRegistry:
 
 
 GLOBAL_SETTINGS = SettingsRegistry()
+
+
+def _resize_pools(_qty) -> None:
+    # the host pools are a cached singleton sized at first use; a dynamic
+    # thread-qty change rebuilds them so it takes effect immediately
+    from opensearch_jvector_tpu_torch.parallel.pools import ComputePools
+
+    ComputePools.reset_for_settings()
+
+
+GLOBAL_SETTINGS.on_change("knn.algo_param.index_thread_qty", _resize_pools)

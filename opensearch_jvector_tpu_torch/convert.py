@@ -25,7 +25,7 @@ def _t(a, dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype)).to(device)
 
 
-def pq_from_numpy(codebooks, center, device: torch.device | str = "cpu",
+def pq_from_numpy(codebooks, center, *, device: torch.device | str,
                   aniso_eta=None) -> ProductQuantization:
     """[M, K, dsub] codebooks + [d] center (+ the anisotropic weight the
     codebooks were trained with) -> ProductQuantization."""
@@ -36,16 +36,16 @@ def pq_from_numpy(codebooks, center, device: torch.device | str = "cpu",
                    else float(np.asarray(aniso_eta, np.float32).reshape(-1)[0])))
 
 
-def nvq_from_numpy(bytes_, params, global_mean,
-                   device: torch.device | str = "cpu") -> NVQVectors:
+def nvq_from_numpy(bytes_, params, global_mean, *,
+                   device: torch.device | str) -> NVQVectors:
     """bytes [n, d] u8 / params [n, M, 4] / global_mean [d] -> NVQVectors."""
     return NVQVectors(bytes_=_t(bytes_, np.uint8, device),
                       params=_t(params, np.float32, device),
                       global_mean=_t(global_mean, np.float32, device))
 
 
-def scalar_from_numpy(bits: int, thresholds, codes,
-                      device: torch.device | str = "cpu"):
+def scalar_from_numpy(bits: int, thresholds, codes, *,
+                      device: torch.device | str):
     """bits / thresholds [levels, d] / packed codes [n, B] ->
     (QuantizationState, codes tensor)."""
     return (QuantizationState(bits=int(bits),
@@ -53,8 +53,8 @@ def scalar_from_numpy(bits: int, thresholds, codes,
             _t(codes, np.uint8, device))
 
 
-def graph_from_numpy(adjacency, degrees, live, entry,
-                     device: torch.device | str = "cpu",
+def graph_from_numpy(adjacency, degrees, live, entry, *,
+                     device: torch.device | str,
                      upper_adjacency=None) -> VamanaGraph:
     """Adjacency [N, deg] / degrees [N] / live [N] / entry (+ the hierarchy
     layer [N, m_up]) -> VamanaGraph."""
@@ -75,7 +75,8 @@ def segment_from_numpy(
     vectors=None,  # [capacity, d] f32
     codebooks=None, center=None, codes=None,  # PQ state, codes [capacity, M]
     ord_to_parent=None,
-    device: torch.device | str = "cpu",
+    *,
+    device: torch.device | str,
     rows_path=None,  # on_disk: the segment's raw row file, not `vectors`
     aniso_eta=None,  # with the PQ state
     upper_adjacency=None,  # hierarchy layer [capacity, m_up]
@@ -91,21 +92,23 @@ def segment_from_numpy(
     pqv = None
     if codes is not None:
         pqv = PQVectors(
-            pq=pq_from_numpy(codebooks, center, device, aniso_eta),
+            pq=pq_from_numpy(codebooks, center, device=device,
+                            aniso_eta=aniso_eta),
             codes=_t(codes, np.uint8, device))
     scalar = (None, None)
     if scalar_codes is not None:
         scalar = scalar_from_numpy(scalar_bits, scalar_thresholds,
-                                   scalar_codes, device)
+                                   scalar_codes, device=device)
     return Segment(
         name=name,
         config=config,
-        graph=graph_from_numpy(adjacency, degrees, live, entry, device,
-                               upper_adjacency),
+        graph=graph_from_numpy(adjacency, degrees, live, entry,
+                               device=device,
+                               upper_adjacency=upper_adjacency),
         docmap=DocMap(ord_to_doc, ord_to_parent),
         vectors=None if vectors is None else _t(vectors, np.float32, device),
         nvq=(None if nvq_bytes is None else nvq_from_numpy(
-            nvq_bytes, nvq_params, nvq_global_mean, device)),
+            nvq_bytes, nvq_params, nvq_global_mean, device=device)),
         pqv=pqv,
         scalar_state=scalar[0],
         scalar_codes=scalar[1],

@@ -14,9 +14,11 @@ Segments of either mode (in_memory, on_disk) are searched in a plain loop
 over a snapshot of the segment set and its tombstones, so a search that
 races a merge's swap answers from the set it started with. The readers own
 the on_disk segments' host row stores: a reader that a merge swaps out (or
-`close()` drops) is closed only once no search holds it. `has_nested`,
-`parents_of` and `get_vectors` wait (ROADMAP queue 1, "Query and
-serving").
+`close()` drops) is closed only once no search holds it. The read side
+(`has_nested`, `parents_of`, `get_vectors`) serves the query layer
+(query/) and the REST service: it too holds each segment's reader for the
+length of its read, and `get_vectors` takes the segment set and its
+tombstones in one snapshot, as `search` does.
 """
 
 from __future__ import annotations
@@ -51,6 +53,16 @@ def resolve_device(device: torch.device | str) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     return dev
+
+
+def _segment_rows(seg: Segment, ords: np.ndarray) -> np.ndarray:
+    """fp32 rows of ordinals `ords` of one segment -> host [n, dim]."""
+    if seg.row_store is not None:  # on_disk: page just these rows
+        return seg.row_store.gather(ords)
+    idx = torch.as_tensor(ords, device=seg.device)
+    if seg.vectors is not None:
+        return seg.vectors[idx].cpu().numpy()
+    return seg.nvq.decode_rows(idx).cpu().numpy()
 
 
 class VectorIndex:
@@ -427,6 +439,74 @@ class VectorIndex:
             if last:
                 reader.close()
 
+    def snapshot(self) -> list[tuple[str, frozenset[int]]]:
+        """The segment set with each segment's tombstones, taken together
+        under the lock: a merge's swap replaces both."""
+        with self._lock:
+            return [(n, self.deleted_docs_for(n)) for n in self._segments]
+
+    # -- read side --------------------------------------------------------------
+
+    def has_nested(self) -> bool:
+        """True when any segment carries nested (parent-tagged) vectors."""
+        for name in self.segment_names:
+            with self._pinned_reader(name) as reader:
+                if reader.seg.docmap.ord_to_parent is not None:
+                    return True
+        return False
+
+    def parents_of(self, doc_ids) -> np.ndarray:
+        """Child doc ids -> parent ids (-1 for root docs), across segments;
+        the first segment that holds a parent for a doc answers."""
+        shape = np.shape(doc_ids)
+        flat = np.asarray(doc_ids, np.int64).reshape(-1)
+        out = np.full(flat.shape, -1, np.int64)
+        for name in self.segment_names:
+            with self._pinned_reader(name) as reader:
+                dm = reader.seg.docmap
+                if dm.ord_to_parent is None:
+                    continue
+                ords = reader.seg.ords_for_docs(flat)
+            p = np.where(ords >= 0, dm.ord_to_parent[np.maximum(ords, 0)], -1)
+            out = np.where(out < 0, p, out)
+        return out.reshape(shape)
+
+    def get_vectors(self, doc_ids) -> tuple[np.ndarray, np.ndarray]:
+        """Vectors of live docs read back from the segments (derived
+        source) -> (vectors [n, dim] f32 on the host, found [n] bool).
+
+        Only the hit rows move: in_memory rows are indexed on the device,
+        on_disk rows are gathered from the host row store, NVQ rows are
+        decoded. Doc ids map to ordinals through `Segment.ords_for_docs`."""
+        doc_ids = np.asarray(doc_ids, np.int64).reshape(-1)
+        out = np.zeros((doc_ids.shape[0], self.config.dim), np.float32)
+        found = np.zeros(doc_ids.shape[0], bool)
+        for name, dead in self.snapshot():
+            want = ~found & (doc_ids >= 0)
+            if dead:  # deletes scoped to THIS segment's copies
+                want &= ~np.isin(doc_ids, np.fromiter(dead, np.int64))
+            if not want.any():
+                continue
+            with self._pinned_reader(name) as reader:
+                seg = reader.seg
+                ords = seg.ords_for_docs(doc_ids)
+                hit = want & (ords >= 0)
+                if not hit.any():
+                    continue
+                idx = torch.as_tensor(ords[hit], device=seg.device)
+                hit[hit] = seg.graph.live[idx].cpu().numpy()
+                if not hit.any():
+                    continue
+                rows = _segment_rows(seg, ords[hit])
+            out[hit] = rows
+            found |= hit
+        return out, found
+
+    def get_vector(self, doc_id: int) -> np.ndarray | None:
+        """One doc's vector (see get_vectors), or None."""
+        vecs, found = self.get_vectors([int(doc_id)])
+        return vecs[0] if found[0] else None
+
     def search(self, queries, sc: SearchConfig,
                accept_docs=None) -> QueryResult:
         """Search every segment, then merge into the global top-k."""
@@ -437,9 +517,7 @@ class VectorIndex:
         # one snapshot of the segment set and its tombstones: merges swap
         # both underneath, and tombstones ride the accept mask INTO the
         # search so dead docs never consume the k result slots
-        with self._lock:
-            snapshot = [(n, self.deleted_docs_for(n)) for n in self._segments]
-        for name, deleted in snapshot:
+        for name, deleted in self.snapshot():
             with self._pinned_reader(name) as reader:
                 res = reader.search(queries, sc, accept_docs=accept_docs,
                                     deleted_docs=deleted)

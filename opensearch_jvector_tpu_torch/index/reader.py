@@ -36,6 +36,7 @@ above 2^18 on the TPU).
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from pathlib import Path
 
@@ -211,6 +212,9 @@ class SegmentReader:
         self._pq_decoded_sq: torch.Tensor | None = None
         self._codes_sq_cache: torch.Tensor | None = None
         self._scalar_thresholds: torch.Tensor | None = None  # on the device
+        # searches run from many threads (the REST service): one builds a
+        # device cache while the others wait, so it is never built twice
+        self._cache_lock = threading.Lock()
 
     def close(self) -> None:
         """Release the segment's host row store (on_disk segments)."""
@@ -222,7 +226,9 @@ class SegmentReader:
         charged to the breaker): the PQ reconstruction, or for an NVQ
         segment the NVQ one. Raises CircuitBreakerException when it does
         not fit."""
-        if self._pq_decoded is None:
+        with self._cache_lock:
+            if self._pq_decoded is not None:
+                return self._pq_decoded
             seg = self.seg
             n, d = seg.capacity(), seg.config.dim
             if seg.nvq is not None:
@@ -241,18 +247,19 @@ class SegmentReader:
                 sq[s: s + blk.shape[0]] = torch.linalg.vecdot(blk, blk)
             self._pq_decoded_sq = sq  # before the cache that announces it
             self._pq_decoded = dec
-        return self._pq_decoded
+            return dec
 
     def _codes_sq(self) -> torch.Tensor:
         """Reconstruction norms ||decode_nocenter||^2 [n] for the codes-only
         fused scan: one adc_scan pass over a Q=1 table of squared codebook
         norms (4 bytes per row, charged to the breaker)."""
-        if self._codes_sq_cache is None:
-            pqv = self.seg.pqv
-            BREAKER.check(pqv.codes.shape[0] * 4, self.seg.device)
-            cb = pqv.pq.codebooks
-            cb_sq = torch.sum(cb * cb, -1)[None].contiguous()  # [1, M, K]
-            self._codes_sq_cache = adc_scan(cb_sq, pqv.codes)[0]
+        with self._cache_lock:
+            if self._codes_sq_cache is None:
+                pqv = self.seg.pqv
+                BREAKER.check(pqv.codes.shape[0] * 4, self.seg.device)
+                cb = pqv.pq.codebooks
+                cb_sq = torch.sum(cb * cb, -1)[None].contiguous()  # [1, M, K]
+                self._codes_sq_cache = adc_scan(cb_sq, pqv.codes)[0]
         return self._codes_sq_cache
 
     @classmethod

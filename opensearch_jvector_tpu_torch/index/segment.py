@@ -81,6 +81,27 @@ class Segment:
     row_store: PagedVectorStore | None = None
     scalar_state: QuantizationState | None = None
     scalar_codes: torch.Tensor | None = None  # [capacity, B] uint8 packed
+    # doc->ordinal inverse (sorted docs, their ordinals), built on first
+    # use; not an init field, so a `dataclasses.replace` with a new docmap
+    # starts without it
+    _doc_sort: tuple[np.ndarray, np.ndarray] | None = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+
+    def ords_for_docs(self, doc_ids) -> np.ndarray:
+        """Doc ids -> graph ordinals (-1 where absent), by binary search
+        over the sorted docmap."""
+        if self._doc_sort is None:
+            docs = self.docmap.ord_to_doc
+            order = np.argsort(docs, kind="stable")
+            self._doc_sort = (docs[order], order.astype(np.int64))
+        sdocs, sords = self._doc_sort
+        shape = np.shape(doc_ids)
+        flat = np.asarray(doc_ids, np.int64).reshape(-1)
+        if not sdocs.size:
+            return np.full(shape, -1, np.int64)
+        pos = np.minimum(np.searchsorted(sdocs, flat), sdocs.size - 1)
+        ok = (sdocs[pos] == flat) & (flat >= 0)
+        return np.where(ok, sords[pos], -1).reshape(shape)
 
     @property
     def quantization_type(self) -> str:

@@ -580,3 +580,56 @@ def test_quantizer_index_on_card_matches_cpu(mode, beam, card, corpus,
                                    cfg.similarity)]
     assert recall_at_k(after.doc_ids, truth, 10) >= floor - 0.1
     idx.close()
+
+
+def test_rest_service_on_card_answers_as_the_inprocess_search(card,
+                                                              tmp_path):
+    """KnnService(device="cuda") over a 20,000-row index built in process:
+    `_search` (single vector, micro-batched, and the 2-D batched body)
+    answers with the in-process search's ids and scores, through the
+    adc_scan kernel."""
+    import http.client
+    import json
+
+    from opensearch_jvector_tpu_torch.service.http import KnnService
+
+    rng = np.random.default_rng(5)
+    vectors, queries = _latent(rng, 20_000), _latent(rng, 8)
+    idx = VectorIndex(tmp_path / "svc" / "docs" / "vec",
+                      DiskAnnConfig(dim=32), device=card)
+    idx.add_batch(np.arange(20_000), vectors)
+    idx.flush()
+    want = idx.search(queries, SearchConfig(k=10))
+    want_one = idx.search(queries[:1], SearchConfig(k=10))
+    idx.close()
+    svc = KnnService(tmp_path / "svc", device=card)
+    svc.start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", svc.port, timeout=120)
+
+        def post(path, body):
+            conn.request("POST" if body is not None else "PUT", path,
+                         json.dumps(body or {"mappings": {"properties": {
+                             "vec": {"type": "knn_vector",
+                                     "dimension": 32}}}}))
+            r = conn.getresponse()
+            return r.status, json.loads(r.read())
+
+        assert post("/docs", None)[0] == 200  # attaches the directory
+        launches = adc_scan.launches
+        st, one = post("/docs/_search", {"query": {"knn": {"vec": {
+            "vector": queries[0].tolist(), "k": 10}}}})
+        st2, many = post("/docs/_search", {"query": {"knn": {"vec": {
+            "vector": queries.tolist(), "k": 10}}}})
+        assert st == st2 == 200
+        assert adc_scan.launches > launches
+        got = [one["hits"]] + [r["hits"] for r in many["responses"]]
+        rows = [(want_one, 0)] + [(want, r) for r in range(len(queries))]
+        for hits, (res, r) in zip(got, rows, strict=True):
+            assert [h["_id"] for h in hits["hits"]] == res.doc_ids[r].tolist()
+            np.testing.assert_allclose([h["_score"] for h in hits["hits"]],
+                                       res.scores[r], rtol=0, atol=1e-6)
+        conn.close()
+    finally:
+        svc.stop()
+        svc.manager.close()

@@ -160,7 +160,8 @@ def test_layer_survives_capacity_growth_and_numpy_handover(jax_graph):
     _, jg = jax_graph
     g = graph_from_numpy(np.asarray(jg.adjacency), np.asarray(jg.degrees),
                          np.asarray(jg.live), jg.entry,
-                         upper_adjacency=np.asarray(jg.upper_adjacency))
+                         upper_adjacency=np.asarray(jg.upper_adjacency),
+                         device="cpu")
     np.testing.assert_array_equal(g.upper_adjacency.numpy(),
                                   np.asarray(jg.upper_adjacency))
     grown = g.with_capacity(2 * g.capacity)
@@ -168,7 +169,7 @@ def test_layer_survives_capacity_growth_and_numpy_handover(jax_graph):
     assert (grown.upper_adjacency[g.capacity:] == -1).all()
     assert graph_from_numpy(np.asarray(jg.adjacency), np.asarray(jg.degrees),
                             np.asarray(jg.live),
-                            jg.entry).upper_adjacency is None
+                            jg.entry, device="cpu").upper_adjacency is None
 
 
 # -- the searcher ---------------------------------------------------------------
@@ -176,7 +177,7 @@ def test_layer_survives_capacity_growth_and_numpy_handover(jax_graph):
 def test_beam_search_takes_one_entry_per_query(jax_graph, corpus):
     v, jg = jax_graph
     g = graph_from_numpy(np.asarray(jg.adjacency), np.asarray(jg.degrees),
-                         np.asarray(jg.live), jg.entry)
+                         np.asarray(jg.live), jg.entry, device="cpu")
     rows = torch.zeros((g.capacity, D))
     rows[:700] = _t(v)
     queries = _t(corpus[1][:6])
@@ -200,7 +201,8 @@ def test_search_counts_the_upper_layer_apart(jax_graph, corpus):
     v, jg = jax_graph
     g = graph_from_numpy(np.asarray(jg.adjacency), np.asarray(jg.degrees),
                          np.asarray(jg.live), jg.entry,
-                         upper_adjacency=np.asarray(jg.upper_adjacency))
+                         upper_adjacency=np.asarray(jg.upper_adjacency),
+                         device="cpu")
     rows = torch.zeros((g.capacity, D))
     rows[:700] = _t(v)
     params = tsearcher.SearchParams(k=K)

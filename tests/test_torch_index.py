@@ -331,7 +331,8 @@ def test_segment_from_numpy_matches_jax_reader(corpus, jax_dir):
         np.asarray(js.graph.entry), js.docmap.ord_to_doc,
         vectors=np.asarray(js.vectors),
         codebooks=np.asarray(js.pqv.pq.codebooks),
-        center=np.asarray(js.pqv.pq.center), codes=np.asarray(js.pqv.codes))
+        center=np.asarray(js.pqv.pq.center), codes=np.asarray(js.pqv.codes),
+        device="cpu")
     _assert_same_results(
         JReader(js).search(corpus[1], jconfig.SearchConfig(k=K)),
         SegmentReader(seg).search(corpus[1], tconfig.SearchConfig(k=K)))

@@ -167,7 +167,7 @@ def test_refine_pq_matches_jax(simf):
     jlead = jpq.train_pq(jnp.asarray(base), jsim, num_subspaces=4)
     want = jpq.refine_pq(jlead, jnp.asarray(merged), jsim)
     lead = pq_from_numpy(np.asarray(jlead.codebooks),
-                         np.asarray(jlead.center))
+                         np.asarray(jlead.center), device="cpu")
     got = tpq.refine_pq(lead, torch.from_numpy(merged), simf)
     np.testing.assert_allclose(got.codebooks.numpy(),
                                np.asarray(want.codebooks),
@@ -189,7 +189,7 @@ def test_refine_pq_host_corpus_samples_like_jax():
     base, merged = _latent(rng, 300), _latent(rng, 700)
     jlead = jpq.train_pq(jnp.asarray(base), JSim.EUCLIDEAN, num_subspaces=4)
     lead = pq_from_numpy(np.asarray(jlead.codebooks),
-                         np.asarray(jlead.center))
+                         np.asarray(jlead.center), device="cpu")
     sel = np.sort(np.random.default_rng(0).choice(700, 256, replace=False))
     want = jpq.refine_pq(jlead, jnp.asarray(merged[sel]), JSim.EUCLIDEAN)
     got = tpq.refine_pq(lead, merged, EUCLID, max_train=256)
@@ -229,7 +229,8 @@ def jax_graph(graph_corpus):
 
 def _port_graph(jg):
     return graph_from_numpy(np.asarray(jg.adjacency), np.asarray(jg.degrees),
-                            np.asarray(jg.live), np.asarray(jg.entry))
+                            np.asarray(jg.live), np.asarray(jg.entry),
+                            device="cpu")
 
 
 def _graph_arrays(g):
@@ -290,7 +291,7 @@ def _graph_recall(graph, vectors, queries, live_ids):
     """recall@10 of the port's beam search over `graph` against exact
     ground truth over the live rows."""
     adj, deg, live, entry = _graph_arrays(graph)
-    g = graph_from_numpy(adj, deg, live, entry)
+    g = graph_from_numpy(adj, deg, live, entry, device="cpu")
     rows = torch.zeros((g.capacity, DIM))
     rows[: vectors.shape[0]] = torch.from_numpy(vectors)
     res = tsearcher.search(

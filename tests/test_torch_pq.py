@@ -47,7 +47,8 @@ def jax_pqs(corpus):
 
 
 def _port_pq(jq):
-    return pq_from_numpy(np.asarray(jq.codebooks), np.asarray(jq.center))
+    return pq_from_numpy(np.asarray(jq.codebooks), np.asarray(jq.center),
+                         device="cpu")
 
 
 def test_default_num_subspaces_identical():

@@ -162,7 +162,8 @@ def test_streamed_host_encode_identical_under_jax_codebooks(
     want = np.asarray(jpq.encode(jq, jnp.asarray(host_corpus),
                                  JSim(simf.value)))
     monkeypatch.setattr(tpq, "HOST_ENCODE_ROWS", 700)  # ragged chunks
-    pq = pq_from_numpy(np.asarray(jq.codebooks), np.asarray(jq.center))
+    pq = pq_from_numpy(np.asarray(jq.codebooks), np.asarray(jq.center),
+                       device="cpu")
     got = tpq.encode(pq, host_corpus, simf)
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -174,7 +175,7 @@ def test_chunked_decode_matches_jax(host_corpus, monkeypatch):
                                 JSim.EUCLIDEAN))
     jv = jpq.PQVectors(pq=jq, codes=jnp.asarray(codes))
     tv = tpq.PQVectors(pq=pq_from_numpy(np.asarray(jq.codebooks),
-                                        np.asarray(jq.center)),
+                                        np.asarray(jq.center), device="cpu"),
                        codes=torch.from_numpy(codes))
     monkeypatch.setattr(tpq, "DECODE_ROWS", 1024)  # 3 chunks, ragged tail
     np.testing.assert_allclose(tv.decode().numpy(), np.asarray(jv.decode()),

@@ -237,7 +237,7 @@ def test_train_nvq_subvector_rule(d, asked, used):
 
 def test_decode_rows_gathers_then_decodes(jax_nvq):
     _, b, p = jax_nvq
-    nvq = nvq_from_numpy(b, p, np.zeros(48, np.float32))
+    nvq = nvq_from_numpy(b, p, np.zeros(48, np.float32), device="cpu")
     ids = torch.tensor([[3, 0, 1499], [7, 7, 2]])
     got = nvq.decode_rows(ids)
     assert got.shape == (2, 3, 48)
@@ -353,7 +353,8 @@ def jax_aniso_pq():
                       anisotropic_eta=3.7)
     return x, jp, pq_from_numpy(np.asarray(jp.codebooks),
                                 np.asarray(jp.center),
-                                aniso_eta=np.asarray(jp.aniso_eta))
+                                aniso_eta=np.asarray(jp.aniso_eta),
+                                device="cpu")
 
 
 def test_aniso_encode_on_shared_codebooks(jax_aniso_pq):
@@ -390,7 +391,7 @@ def test_aniso_training_quality_matches_reference(jax_aniso_pq):
             xs, pq.codebooks, pq.aniso_eta).amin(-1).mean())
 
     theirs = pq_from_numpy(np.asarray(jp.codebooks), np.asarray(jp.center),
-                           aniso_eta=3.7)
+                           aniso_eta=3.7, device="cpu")
     assert abs(loss(tp_) - loss(theirs)) <= 0.05 * loss(theirs)
     # eta <= 1 means plain PQ
     assert tpq.train_pq(_t(x[:300]), DOT, num_subspaces=4,
@@ -616,14 +617,15 @@ def test_segment_from_numpy_carries_every_state(jax_dirs, corpus, tier):
             np.asarray(j.graph.degrees), np.asarray(j.graph.live),
             j.graph.entry, j.docmap.ord_to_doc,
             vectors=None if j.vectors is None else np.asarray(j.vectors),
-            **kw)
+            **kw, device="cpu")
         sc = tconfig.SearchConfig(k=K)
         want = SegmentReader.open(jax_dirs[mode] / name, "cpu").search(
             corpus[1], sc)
         got = SegmentReader(seg).search(corpus[1], sc)
         np.testing.assert_array_equal(got.doc_ids, want.doc_ids)
         np.testing.assert_array_equal(got.scores, want.scores)
-    state, codes = scalar_from_numpy(2, np.zeros((3, 4)), np.zeros((5, 2)))
+    state, codes = scalar_from_numpy(2, np.zeros((3, 4)), np.zeros((5, 2)),
+                                     device="cpu")
     assert state.bits == 2 and codes.dtype == torch.uint8
 
 

@@ -86,7 +86,7 @@ def test_beam_search_on_jax_graph_matches(e, corpus, jax_graph):
     g = graph_from_numpy(np.asarray(jax_graph.adjacency),
                          np.asarray(jax_graph.degrees),
                          np.asarray(jax_graph.live),
-                         np.asarray(jax_graph.entry))
+                         np.asarray(jax_graph.entry), device="cpu")
     cap = g.capacity
     tvec = torch.zeros((cap, D))
     tvec[:N] = torch.from_numpy(vectors)
@@ -117,7 +117,7 @@ def test_accept_mask_and_threshold_match(corpus, jax_graph):
     g = graph_from_numpy(np.asarray(jax_graph.adjacency),
                          np.asarray(jax_graph.degrees),
                          np.asarray(jax_graph.live),
-                         np.asarray(jax_graph.entry))
+                         np.asarray(jax_graph.entry), device="cpu")
     tvec = torch.zeros((cap, D))
     tvec[:N] = torch.from_numpy(vectors)
     tres = tsearcher.search(
