@@ -101,6 +101,37 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      default ef_search where that reaches the target, else at BEAM_EF,
      and both are reported. Profiles of one 512-query batch on 9a's beam
      segment and on 9b's 4-bit index.
+ 11. sharded search (after 8b), parallel/: ShardedVectorIndex(<service
+     root>/shardy/vec, DiskAnnConfig(dim=128), n_shards=4, device="cuda")
+     over phase 4's rows (doc id mod 4: four shards of one 2^18 segment
+     each, flushed side by side). (a) the host fan-out (each shard's own
+     search on the search pool, adc_scan) over --queries queries; (b)
+     attach_mesh(make_mesh(["cuda:0"] * 4)): the mesh path, at the default
+     ef_search (reported) and BEAM_EF (held to the target), exactly one
+     restack per shard registry and no reject; (c) churn: a flush of
+     50,000 rows (a fifth of them updates of live docs) into every shard
+     but the last, then 10,000 deletes: G = 2, a partial restack per shard
+     registry, answers held as 8a holds them (no deleted id, the newest
+     vector's exact score, recall over the live rows); (d) over REST:
+     KnnService(root, device="cuda", mesh=...), PUT /shardy with
+     number_of_shards 4 attaches the directory: _count, 2-D bodies of 512
+     equal to (c)'s in-process answers, a knn_score l2 script equal to
+     numpy's exact top-10 up to ties, the stats deltas; (e) phase 7's
+     500,000 rows as 4 on_disk shards: the approx-only mesh path and its
+     paged rerank, exact fp32 scores, recall at the target; (f)
+     dryrun(make_mesh(["cuda:0"] * 4)). Reported: ms/query of each path,
+     restack seconds, peak device memory;
+ 12. the quantized build: DiskAnnConfig(dim=128, mode="on_disk", m=32,
+     num_pq_subspaces=64), build_batch_size 8192 (bench.py's graph tier),
+     2,200,000 rows (capacity 2^22) flushed through flush(device_rows=...)
+     from rows already on the card. Held: the graph built from the bf16
+     decoded rows, the entry a live, used ordinal; then a 200,000-row flush
+     (a 2^18 scan-tier segment) and 2,048 queries under the default and the
+     tight breaker (the 2^22 segment on the beam tier; decode_scan on the
+     scan segment under the tight one), recall held at the default
+     ef_search where it reaches the target, else at BEAM_EF; a reopen gives
+     the same top-10. Reported: vec/s by stage, peak device memory against
+     the decoded bf16 + adjacency + codes the segment holds.
 The in_memory corpus is the latent-16 "sift-like" generator of bench.py
 (make_data), the GIST-shaped one the latent-32 960-d generator of
 bench.py's gist section, both made with numpy from --seed. The last two
@@ -173,6 +204,17 @@ SCALAR_OVERQUERY = (5, 10, 20)
 # eta = 1, which is plain PQ; 0.4 gives eta about 2.5
 ANISO_FLUSHES = (250_000, 500_000)
 ANISO_THRESHOLD = 0.4
+# phase 11: phase 4's corpus in 4 shards of one 2^18 segment each (4 shards
+# on one card, as one OpenSearch node holds several); the churn adds
+# CHURN rows (a fifth of them updates) to all shards but the last, then
+# deletes CHURN_DELETES docs
+SHARDS = 4
+CHURN, CHURN_DELETES = 50_000, 10_000
+# phase 12: bench.py's graph tier (m=32, PQ64, build_batch_size 8192 at
+# >= 2^22), cut from its 4,194,304 rows to 2,200,000: the capacity (and so
+# every device array of the segment) is the same 2^22, the build about half;
+# then a 2^18 scan-tier flush, where the tight breaker launches decode_scan
+QB_N, QB_SCAN_N, QB_BATCH = 2_200_000, 200_000, 8192
 ON_DISK_SPANS = ("approximate", "rerank_gather", "rerank_score")
 # H100 SXM peaks (NVIDIA data sheet, 700 W): the kernels' bounds
 PEAK_BYTES_S = 3.35e12
@@ -618,7 +660,7 @@ def phase_9a(seed: int, n_queries: int, launches: dict) -> None:
     vectors, queries, _ = make_data(rng, n, n_queries, DIM)
     cfg = DiskAnnConfig(dim=DIM, quantization_type="nvq+pq")
     sc, deep = SearchConfig(k=K), SearchConfig(k=K, ef_search=BEAM_EF)
-    log(f"[9a/10] NVQ (nvq+pq, {cfg.nvq_num_subvectors} subvectors): {n} x "
+    log(f"[9a/12] NVQ (nvq+pq, {cfg.nvq_num_subvectors} subvectors): {n} x "
         f"{DIM} in flushes of {NVQ_FLUSHES}, {n_queries} queries, k={K}")
     # NVQ alone on one flush's rows
     block = torch.as_tensor(vectors[: NVQ_FLUSHES[0]], device="cuda")
@@ -744,7 +786,7 @@ def phase_9b(seed: int, launches: dict) -> None:
     rows_dev = torch.as_tensor(vectors, device="cuda")
     gt = ground_truth_topk(torch.as_tensor(queries, device="cuda"), rows_dev,
                            K, SimilarityFunction.EUCLIDEAN)
-    log(f"[9b/10] scalar quantization {SCALAR_MODES}: {SCALAR_N} x {DIM} in "
+    log(f"[9b/12] scalar quantization {SCALAR_MODES}: {SCALAR_N} x {DIM} in "
         f"one flush each, {VAMANA_QUERIES} queries, k={K}, overquery "
         f"{SCALAR_OVERQUERY}")
     adc_scan.launches = decode_scan.launches = 0
@@ -826,7 +868,7 @@ def phase_9c(seed: int, launches: dict, plain_pq_ms: int) -> None:
     cfg = DiskAnnConfig(dim=DIM, similarity=dot, hierarchy_enabled=True,
                         pq_anisotropic_threshold=ANISO_THRESHOLD)
     sc, deep = SearchConfig(k=K), SearchConfig(k=K, ef_search=BEAM_EF)
-    log(f"[9c/9] anisotropic PQ (threshold {ANISO_THRESHOLD}) + hierarchy, "
+    log(f"[9c/12] anisotropic PQ (threshold {ANISO_THRESHOLD}) + hierarchy, "
         f"inner product over unit-norm rows: {n} x {DIM} in flushes of "
         f"{ANISO_FLUSHES}, {VAMANA_QUERIES} queries, k={K}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_aniso_") as root:
@@ -985,7 +1027,7 @@ def phase_10(root: str, vectors, queries, mem_ids, mem_scores, truth, basis,
 
     n, nq = vectors.shape[0], queries.shape[0]
     n_seg = FLUSHES
-    log(f"[10/10] serving over REST: KnnService(device=\"cuda\") attaches "
+    log(f"[10/12] serving over REST: KnnService(device=\"cuda\") attaches "
         f"phase 4's {n} x {DIM} index as /sift ({n_seg} segments); {smi}")
     gc.collect()
     torch.cuda.empty_cache()
@@ -1332,7 +1374,7 @@ def phase_6b(n_queries: int) -> float:
     truth = ground_truth_topk(qd, vd, K, cos)
     recall = recall_at_k(ids, truth, K)
     gap = recall - GIST_PARITY_REF
-    log(f"[6b/10] GIST parity: bench.py's gist cell ({gn} x {gdim}, cosine, "
+    log(f"[6b/12] GIST parity: bench.py's gist cell ({gn} x {gdim}, cosine, "
         f"latent {glat}, seed 41, PQ{GIST_M}, {n_queries} queries: decoded "
         f"bf16 scan, top-{K * 5}, exact rerank) on the port: PQ train + "
         f"encode + decode {build_s:.1f} s, recall@{K} {recall:.4f}; "
@@ -1342,6 +1384,380 @@ def phase_6b(n_queries: int) -> float:
     gc.collect()
     torch.cuda.empty_cache()
     return recall
+
+
+def _stat_deltas(before: dict, after: dict, *names) -> list:
+    return [after[k] - before[k] for k in names]
+
+
+def phase_11(vectors, queries, basis, vv, vq, seed: int, smi: str,
+             launches: dict) -> None:
+    """Sharded search: see the module docstring."""
+    from opensearch_jvector_tpu_torch.api.config import (
+        DiskAnnConfig,
+        SearchConfig,
+    )
+    from opensearch_jvector_tpu_torch.api.stats import Counter
+    from opensearch_jvector_tpu_torch.ops.adc_kernel import adc_scan
+    from opensearch_jvector_tpu_torch.ops.pq_scan_kernel import decode_scan
+    from opensearch_jvector_tpu_torch.parallel.distributed import (
+        ShardedVectorIndex,
+    )
+    from opensearch_jvector_tpu_torch.parallel.dryrun import dryrun
+    from opensearch_jvector_tpu_torch.parallel.sharded import make_mesh
+    from opensearch_jvector_tpu_torch.service.http import KnnService
+    from opensearch_jvector_tpu_torch.utils.ground_truth import recall_at_k
+
+    n, nq, s_n = vectors.shape[0], queries.shape[0], SHARDS
+    rejects = [c.value for c in Counter if c.name.startswith("KNN_MESH_REJECT")]
+    restack = (Counter.KNN_MESH_RESTACK_COUNT.value,
+               Counter.KNN_MESH_RESTACK_PARTIAL_COUNT.value,
+               Counter.KNN_MESH_RESTACK_TIME.value)
+    log(f"[11/12] sharded: phase 4's {n} x {DIM} rows in {s_n} shards (doc id "
+        f"mod {s_n}), {nq} queries in batches of {BATCH}, k={K}; {smi}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.monotonic()
+    svc_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_shardy_")
+    root = os.path.join(svc_dir.name, "shardy", "vec")
+    sc, deep = SearchConfig(k=K), SearchConfig(k=K, ef_search=BEAM_EF)
+    idx = ShardedVectorIndex(root, DiskAnnConfig(dim=DIM), n_shards=s_n,
+                             device="cuda")
+    t0 = time.monotonic()
+    idx.add_batch(np.arange(n), vectors)
+    idx.flush()
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    caps = [idx.shards[s]._reader(nm).seg.capacity()
+            for s in range(s_n) for nm in idx.shards[s].segment_names]
+    log(f"  add_batch + flush (the shards side by side on the search pool): "
+        f"{dt:.2f} s = {n / dt:.0f} vec/s; segment capacities {caps}")
+    if len(caps) != s_n or (n == 1_000_000 and set(caps) != {1 << 18}):
+        raise AssertionError("the shards hold another segment set")
+    truth = live_truth(queries, vectors, np.arange(n), K)
+
+    # (a) the host fan-out: each shard's own search on the search pool
+    idx.search(queries[:BATCH], sc)  # warm: segment loads
+    adc_scan.launches = decode_scan.launches = 0
+    ids, _, wall = search_all(idx, queries, sc)
+    launches["sharded_host"] = kernel_counts(adc_scan, decode_scan)
+    recall = recall_at_k(ids, truth, K)
+    log(f"  (a) host fan-out: {1000 * wall / nq:.5f} ms/query batched, "
+        f"recall@{K} {recall:.4f}, launches {launches['sharded_host']}")
+    if recall < RECALL_TARGET or launches["sharded_host"]["adc_scan"] <= 0:
+        raise AssertionError("host fan-out: recall or adc_scan missing")
+
+    # (b) the mesh path: four shards on one card
+    mesh = make_mesh(["cuda:0"] * s_n)
+    idx.attach_mesh(mesh)
+    s0 = idx.stats()
+    idx.search(queries[:BATCH], deep)  # warm: the restack
+    adc_scan.launches = decode_scan.launches = 0
+    ids_d, _, wall_d = search_all(idx, queries, sc)
+    ids, _, wall = search_all(idx, queries, deep)
+    launches["sharded_mesh"] = kernel_counts(adc_scan, decode_scan)
+    s1 = idx.stats()
+    n_restack, _, restack_ms = _stat_deltas(s0, s1, *restack)
+    n_reject = sum(_stat_deltas(s0, s1, *rejects))
+    rec_d, recall = recall_at_k(ids_d, truth, K), recall_at_k(ids, truth, K)
+    log(f"  (b) mesh {[str(d) for d in mesh]}: ef_search "
+        f"{sc.resolved_ef()}: {1000 * wall_d / nq:.5f} ms/query batched, "
+        f"recall@{K} {rec_d:.4f}; ef_search {BEAM_EF} (held): "
+        f"{1000 * wall / nq:.5f} ms/query batched, recall@{K} {recall:.4f}; "
+        f"restacks {n_restack} (one per shard registry), restack "
+        f"{restack_ms / s_n / 1000:.3f} s, rejects {n_reject}, launches "
+        f"{launches['sharded_mesh']}")
+    if n_restack != s_n or n_reject or idx._mesh_state is None:
+        raise AssertionError("the mesh path was not the one that served")
+    if recall < RECALL_TARGET:
+        raise AssertionError(f"mesh recall@{K} {recall} < {RECALL_TARGET}")
+
+    # (c) churn that skips the last shard (so three shards restack), then
+    # deletes
+    crng = np.random.default_rng(seed + 11)
+    n_upd = CHURN // UPDATE_SHARE
+    n_new = CHURN - n_upd
+    j = np.arange(n_new)
+    new_ids = n + s_n * (j // (s_n - 1)) + j % (s_n - 1)
+    upd_ids = crng.choice(np.nonzero(np.arange(n) % s_n != s_n - 1)[0],
+                          n_upd, replace=False)
+    rows = np.zeros((int(new_ids.max()) + 1, DIM), np.float32)
+    rows[:n] = vectors
+    rows[new_ids] = more_rows(crng, basis, n_new)
+    rows[upd_ids] = more_rows(crng, basis, n_upd)
+    live = np.zeros(rows.shape[0], bool)
+    live[:n] = live[new_ids] = True
+    t0 = time.monotonic()
+    idx.add_batch(np.concatenate([new_ids, upd_ids]),
+                  np.concatenate([rows[new_ids], rows[upd_ids]]))
+    idx.flush()
+    flush_s = time.monotonic() - t0
+    doomed = crng.choice(np.nonzero(live)[0], CHURN_DELETES, replace=False)
+    idx.delete(doomed)
+    live[doomed] = False
+    rows_dev = torch.as_tensor(rows, device="cuda")
+    truth = live_truth(queries, rows, np.nonzero(live)[0], K)
+    s0 = idx.stats()
+    adc_scan.launches = decode_scan.launches = 0
+    mem_ids, mem_scores, wall = search_all(idx, queries, deep)
+    launches["sharded_churn"] = kernel_counts(adc_scan, decode_scan)
+    s1 = idx.stats()
+    n_restack, n_partial, restack_ms = _stat_deltas(s0, s1, *restack)
+    recall = check_live_answers("mesh after the churn", mem_ids, mem_scores,
+                                queries, rows_dev, doomed, truth, K)
+    g = idx._mesh_state.n_segments
+    log(f"  (c) churn: flush of {n_new} new docs + {n_upd} updates (shard "
+        f"{s_n - 1} gets none) {flush_s:.2f} s, {CHURN_DELETES} deletes; G "
+        f"{g}; restacks {n_restack}, partial {n_partial}, restack "
+        f"{restack_ms / s_n / 1000:.3f} s; ef_search {BEAM_EF}: "
+        f"{1000 * wall / nq:.5f} ms/query batched, recall@{K} {recall:.4f} "
+        f"over the live rows, no deleted id, every score the newest "
+        f"vector's; launches {launches['sharded_churn']}")
+    if g != 2 or n_partial != s_n or n_restack != s_n:
+        raise AssertionError("the churn did not restack three shards alone")
+    idx.close()
+    del idx
+
+    # (d) over REST: the service attaches the directory with the mesh
+    svc = KnnService(svc_dir.name, device="cuda", mesh=mesh)
+    svc.start()
+    rest = Rest(svc.port)
+    try:
+        put = rest("PUT", "/shardy", {
+            "settings": {"index": {"number_of_shards": s_n}},
+            "mappings": {"properties": {"vec": {"type": "knn_vector",
+                                                "dimension": DIM}}}})
+        count = rest("GET", "/shardy/_count")["count"]
+        stats0 = rest("GET", "/_plugins/_knn/stats")["nodes"]["local"]
+        adc_scan.launches = decode_scan.launches = 0
+        ids, scores = [], []
+        t0 = time.monotonic()
+        for s in range(0, nq, BATCH):
+            body = {"size": K, "query": {"knn": {"vec": {
+                "vector": queries[s: s + BATCH].tolist(), "k": K,
+                "method_parameters": {"ef_search": BEAM_EF}}}}}
+            for r in rest("POST", "/shardy/_search", body)["responses"]:
+                i_, s_ = hit_arrays(r["hits"]["hits"])
+                ids.append(i_)
+                scores.append(s_)
+        wall = time.monotonic() - t0
+        ids, scores = np.stack(ids), np.stack(scores)
+        same = bool((ids == mem_ids).all())
+        gap = float(np.abs(scores - mem_scores).max())
+        q = queries[1]
+        out = rest("POST", "/shardy/_search", {"size": K, "query": {
+            "script_score": {"script": {
+                "source": "knn_score", "lang": "knn", "params": {
+                    "field": "vec", "space_type": "l2",
+                    "query_value": q.tolist()}}}}})
+        got, _ = hit_arrays(out["hits"]["hits"])
+        live_ids = np.nonzero(live)[0]
+        d2 = ((rows[live_ids].astype(np.float64) - q) ** 2).sum(-1)
+        want = live_ids[np.argsort(d2, kind="stable")[:K]]
+        d2_of = dict(zip(live_ids.tolist(), d2.tolist()))
+        tied = np.isclose([d2_of.get(int(d), np.inf) for d in got],
+                          [d2_of[int(d)] for d in want], rtol=1e-6)
+        script_ok = bool((got == want).all() or tied.all())
+        launches["sharded_rest"] = kernel_counts(adc_scan, decode_scan)
+        stats1 = rest("GET", "/_plugins/_knn/stats")["nodes"]["local"]
+        deltas = [stats1[c] - stats0[c] for c in (
+            "knn_query_count", "script_query_requests",
+            "knn_mesh_restack_count")]
+        expect = [nq * s_n, 1, s_n]
+        log(f"  (d) REST: PUT /shardy attached {put['shards']} shards, "
+            f"_count {count}; batched bodies of {BATCH} at ef_search "
+            f"{BEAM_EF}: {1000 * wall / nq:.4f} ms/query, ids equal to (c)'s "
+            f"in-process answers: {same}, largest score gap {gap:.3e}; "
+            f"knn_score l2 script equal to numpy's exact top-{K} up to ties: "
+            f"{script_ok}; stats deltas (query count, script requests, "
+            f"restacks) {deltas}, expected {expect}; launches "
+            f"{launches['sharded_rest']}")
+        if (count != int(live.sum()) or not same or gap > 1e-6
+                or not script_ok or deltas != expect):
+            raise AssertionError("the sharded REST index answered otherwise")
+    finally:
+        rest.close()
+        svc.stop()
+        svc.manager.close()
+    del rows_dev
+    svc_dir.cleanup()
+    serving_peak = torch.cuda.max_memory_allocated()
+
+    # (e) on_disk shards: approx-only on the mesh, paged rerank
+    n_v = vv.shape[0]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shardy_disk_") as d:
+        didx = ShardedVectorIndex(d, DiskAnnConfig(dim=DIM, mode="on_disk"),
+                                  n_shards=s_n, device="cuda", mesh=mesh)
+        t0 = time.monotonic()
+        didx.add_batch(np.arange(n_v), vv)
+        didx.flush()
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        vtruth = live_truth(vq, vv, np.arange(n_v), K)
+        didx.search(vq[:BATCH], sc)  # warm: loads, restack
+        adc_scan.launches = decode_scan.launches = 0
+        s0 = didx.stats()
+        t0 = time.monotonic()
+        ids, scores, held = search_held("on_disk shards on the mesh", didx,
+                                        vq, vtruth, sc, deep)
+        wall = time.monotonic() - t0
+        launches["sharded_on_disk"] = kernel_counts(adc_scan, decode_scan)
+        s1 = didx.stats()
+        check_exact_scores("on_disk mesh", ids, scores, vq,
+                           torch.as_tensor(vv, device="cuda"))
+        recall = recall_at_k(ids, vtruth, K)
+        approx = didx._mesh_state is not None and didx._mesh_state.approx_only
+        reranked = s1["knn_query_reranked_count"] - s0["knn_query_reranked_count"]
+        log(f"  (e) on_disk: {n_v} x {DIM} in {s_n} shards, flush {dt:.2f} s "
+            f"= {n_v / dt:.0f} vec/s; approx-only mesh path {approx}, paged "
+            f"rerank of {reranked} rows over both passes ({wall:.2f} s); held "
+            f"at ef_search {held.resolved_ef()}: recall@{K} {recall:.4f}, "
+            f"every score the exact fp32 one, rejects "
+            f"{sum(_stat_deltas(s0, s1, *rejects))}")
+        didx.close()
+        if not approx or recall < RECALL_TARGET or reranked <= 0:
+            raise AssertionError("the on_disk mesh path failed")
+
+    # (f) the dry run over the same mesh
+    t0 = time.monotonic()
+    dryrun(mesh)
+    log(f"  (f) dryrun(make_mesh(['cuda:0'] * {s_n})): ok in "
+        f"{time.monotonic() - t0:.2f} s")
+    log(f"  phase 11: {time.monotonic() - t_phase:.1f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated()} B (through (d): "
+        f"{serving_peak} B)")
+
+
+def phase_12(seed: int, smi: str, launches: dict) -> None:
+    """The quantized build at capacity 2^22: see the module docstring."""
+    from opensearch_jvector_tpu_torch.api.config import (
+        DiskAnnConfig,
+        SearchConfig,
+    )
+    from opensearch_jvector_tpu_torch.api.settings import GLOBAL_SETTINGS
+    from opensearch_jvector_tpu_torch.api.stats import Counter
+    from opensearch_jvector_tpu_torch.index.index import VectorIndex
+    from opensearch_jvector_tpu_torch.index.scheduler import (
+        ForceMergesOnlyMergePolicy,
+    )
+    from opensearch_jvector_tpu_torch.models import builder as builder_mod
+    from opensearch_jvector_tpu_torch.ops.adc_kernel import adc_scan
+    from opensearch_jvector_tpu_torch.ops.pq_scan_kernel import decode_scan
+    from opensearch_jvector_tpu_torch.utils.circuit_breaker import BREAKER
+    from opensearch_jvector_tpu_torch.utils.ground_truth import recall_at_k
+
+    n, n_scan, nq = QB_N, QB_SCAN_N, VAMANA_QUERIES
+    cfg = DiskAnnConfig(dim=DIM, mode="on_disk", m=32, num_pq_subspaces=64)
+    rng = np.random.default_rng(seed + 12)
+    t0 = time.monotonic()
+    rows, queries, _ = make_data(rng, n + n_scan, nq, DIM)
+    log(f"[12/12] quantized build: {n} x {DIM} rows (capacity 2^22) in one "
+        f"on_disk flush from rows on the card (flush(device_rows=...)), "
+        f"m={cfg.m}, PQ{cfg.num_pq_subspaces}, build_batch_size "
+        f"{QB_BATCH}; then {n_scan} rows (scan tier); {nq} queries, k={K} "
+        f"(data made in {time.monotonic() - t0:.1f} s); {smi}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dir_ = tempfile.TemporaryDirectory(prefix="chip_smoke_qbuild_")
+    idx = VectorIndex(dir_.name, cfg, device="cuda",
+                      merge_policy=ForceMergesOnlyMergePolicy())
+    idx.writer.build_batch_size = QB_BATCH
+    rows_dev = torch.as_tensor(rows[:n], device="cuda")
+    sources, calls = [], []
+    real_build = builder_mod.GraphIndexBuilder.build
+
+    def spy_build(self, vectors, *a, **kw):
+        sources.append(vectors.dtype)
+        return real_build(self, vectors, *a, **kw)
+
+    def provider(lo, hi):
+        calls.append((lo, hi))
+        return rows_dev[lo:hi]
+
+    builder_mod.GraphIndexBuilder.build = spy_build
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = idx.stats.snapshot()
+        t0 = time.monotonic()
+        idx.add_batch(np.arange(n), rows[:n])
+        name = idx.flush(device_rows=provider)
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+    finally:
+        builder_mod.GraphIndexBuilder.build = real_build
+    peak = torch.cuda.max_memory_allocated() - base
+    after = idx.stats.snapshot()
+    pq_ms, build_ms = _stat_deltas(
+        before, after, Counter.KNN_QUANTIZATION_TRAINING_TIME.value,
+        Counter.KNN_GRAPH_BUILD_TIME.value)
+    seg = idx._reader(name).seg
+    cap, entry = seg.capacity(), seg.graph.entry
+    entry_ok = entry < n and bool(seg.graph.live[entry])
+    resident = (cap * DIM * 2 + cap * int(cfg.m * cfg.neighbor_overflow) * 4
+                + cap * cfg.num_pq_subspaces)
+    log(f"  flush {name}: {dt:.2f} s = {n / dt:.0f} vec/s (PQ train + encode "
+        f"from {len(calls)} provider blocks {pq_ms} ms = "
+        f"{1000 * n / max(pq_ms, 1):.0f} vec/s; graph build from the bf16 "
+        f"decoded rows {build_ms} ms = {1000 * n / max(build_ms, 1):.0f} "
+        f"vec/s; row file, CRC and containers {1000 * dt - pq_ms - build_ms:.0f}"
+        f" ms); build source {sources}; capacity {cap}; entry {entry} (live, "
+        f"used: {entry_ok}); peak device memory over the rows on the card "
+        f"{peak} B against decoded bf16 + adjacency + codes at the capacity "
+        f"{resident} B; {smi}")
+    if (sources != [torch.bfloat16] or not entry_ok
+            or cap < idx.writer.quantized_build_min_capacity):
+        raise AssertionError("the flush did not take the quantized build")
+    del rows_dev, seg
+    name2, dt2, _, _ = flush_rows(idx, rows, n, n_scan)
+    log(f"  flush {name2}: {n_scan} rows in {dt2:.2f} s (scan tier)")
+    idx.close()
+    del idx
+    gc.collect()
+    torch.cuda.empty_cache()
+    truth = live_truth(queries, rows, np.arange(n + n_scan), K)
+    deep = SearchConfig(k=K, ef_search=BEAM_EF)
+    first = None
+    for rung in ("default", "tight"):
+        ridx = VectorIndex(dir_.name, device="cuda")
+        for n_ in ridx.segment_names:
+            ridx._reader(n_)  # load before the breaker tightens
+        if rung == "tight":
+            tight_breaker_limit(GLOBAL_SETTINGS, BREAKER)
+        adc_scan.launches = decode_scan.launches = 0
+        try:
+            ids, _, held = search_held(f"the 2^22 segment + the scan segment, "
+                                       f"{rung} breaker", ridx, queries, truth,
+                                       SearchConfig(k=K), deep)
+        finally:
+            GLOBAL_SETTINGS.put("knn.memory.circuit_breaker.limit", 50.0)
+        launches[f"quantized_build_{rung}"] = kernel_counts(adc_scan,
+                                                            decode_scan)
+        cached = [ridx._reader(n_)._pq_decoded is not None
+                  for n_ in ridx.segment_names]
+        log(f"  {rung} breaker: decoded cache per segment {cached}, launches "
+            f"{launches[f'quantized_build_{rung}']}")
+        if cached != [rung == "default"] * len(cached):
+            raise AssertionError(f"{rung} breaker: decoded cache {cached}")
+        if rung == "tight" and launches["quantized_build_tight"][
+                "decode_scan"] <= 0:
+            raise AssertionError("the tight scan tier never launched "
+                                 "decode_scan")
+        first = (ids, held) if first is None else first
+        ridx.close()
+    again = VectorIndex(dir_.name, device="cuda")
+    same = bool((search_all(again, queries[:BATCH], first[1])[0]
+                 == first[0][:BATCH]).all())
+    again.close()
+    log(f"  reopen: identical top-{K} ids for {BATCH} queries: {same}")
+    if not same:
+        raise AssertionError("the reopened quantized-build index differs")
+    dir_.cleanup()
+    del rows
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1388,7 +1804,7 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    log(f"[1/10] device: {kind} (torch {torch.__version__}, "
+    log(f"[1/12] device: {kind} (torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} visible)")
     log(smi)
 
@@ -1397,7 +1813,7 @@ def main() -> int:
     names = ("adc_scan", "decode_scan", "vector_store")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(_kernels.build, names)))
-    log(f"[2/10] build: {', '.join(p.name for p in libs.values())} in "
+    log(f"[2/12] build: {', '.join(p.name for p in libs.values())} in "
         f"{time.monotonic() - t0:.1f} s (compilers started together)")
     for name in names:
         if name not in _kernels.BUILD_LOGS:
@@ -1407,7 +1823,7 @@ def main() -> int:
     log(f"  sass: {hmma_count(libs['decode_scan'])}")
 
     # ---- 3. kernels vs plain ----------------------------------------------
-    log("[3/10] kernels vs plain PyTorch on the card")
+    log("[3/12] kernels vs plain PyTorch on the card")
     m = default_num_subspaces(DIM)  # the subspaces the flushes train
     adc_rec = check_adc_scan(BATCH, m, 256, 1 << 18, args.seed, reps=20,
                              plain_reps=3, library=True, fused=True)
@@ -1441,7 +1857,7 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     vectors, queries, basis = make_data(rng, args.n, args.queries, DIM)
     sc = SearchConfig(k=K)
-    log(f"[4/10] in_memory path: {args.n} x {DIM} in {FLUSHES} flushes, "
+    log(f"[4/12] in_memory path: {args.n} x {DIM} in {FLUSHES} flushes, "
         f"{args.queries} queries in batches of {BATCH}, k={K}")
     torch.cuda.reset_peak_memory_stats()
     launches = {}
@@ -1497,7 +1913,7 @@ def main() -> int:
     reopened = VectorIndex(root, device="cuda")
     again = reopened.search(queries[: BATCH], sc).doc_ids
     same = bool((again == ids[: BATCH]).all())
-    log(f"[5/10] reopen from commits.json: {len(reopened.segment_names)} "
+    log(f"[5/12] reopen from commits.json: {len(reopened.segment_names)} "
         f"segments, identical top-{K} ids for {BATCH} "
         f"queries: {same}")
     if not same:
@@ -1523,7 +1939,7 @@ def main() -> int:
         grng = np.random.default_rng(args.seed + 41)
         t0 = time.monotonic()
         gv, gq = make_gist(grng, GIST_N, args.queries)
-        log(f"[6/10] on_disk flat GIST1M-shaped: {GIST_N} x {GIST_DIM}, "
+        log(f"[6/12] on_disk flat GIST1M-shaped: {GIST_N} x {GIST_DIM}, "
             f"PQ{GIST_M}, {args.queries} queries in batches of {BATCH}, "
             f"k={K} (data made in {time.monotonic() - t0:.1f} s)")
         gt = ground_truth_topk(torch.as_tensor(gq, device="cuda"),
@@ -1657,7 +2073,7 @@ def main() -> int:
     vrng = np.random.default_rng(args.seed + 7)
     n_v = sum(VAMANA_FLUSHES)
     vv, vq, _ = make_data(vrng, n_v, VAMANA_QUERIES, DIM)
-    log(f"[7/10] on_disk vamana: {n_v} x {DIM} in flushes of "
+    log(f"[7/12] on_disk vamana: {n_v} x {DIM} in flushes of "
         f"{VAMANA_FLUSHES}, {VAMANA_QUERIES} queries, k={K}")
     gt = ground_truth_topk(torch.as_tensor(vq, device="cuda"),
                            torch.as_tensor(vv, device="cuda"), K,
@@ -1732,7 +2148,7 @@ def main() -> int:
     n_del, n_add = n // DELETE_SHARE, n // ADD_SHARE
     n_upd = n_add // UPDATE_SHARE
     n_new = n_add - n_upd
-    log(f"[8a/10] in_memory deletes and merges on phase 4's index directory: "
+    log(f"[8a/12] in_memory deletes and merges on phase 4's index directory: "
         f"delete {n_del}, then add {n_new} new docs and {n_upd} updates")
     # the default merge policy: tiered, at most 4 segments, 4 a merge
     index = VectorIndex(sift_dir, device="cuda")
@@ -1906,7 +2322,6 @@ def main() -> int:
         index.close()
     del rows, rows_dev, truth
     mem_dir.cleanup()
-    del vectors, queries
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1914,7 +2329,7 @@ def main() -> int:
     doomed = np.random.default_rng(args.seed + 9).choice(
         n_v, n_v // DELETE_SHARE, replace=False)
     keep = np.setdiff1d(np.arange(n_v), doomed)
-    log(f"[8b/10] on_disk vamana deletes and force_merge: delete "
+    log(f"[8b/12] on_disk vamana deletes and force_merge: delete "
         f"{doomed.size} of {n_v} docs")
     truth = live_truth(vq, vv, keep, K)
     root = vamana_dir.name
@@ -1985,9 +2400,16 @@ def main() -> int:
     index.close()
     both_breakers("merged")
     vamana_dir.cleanup()
-    del vv, vq, truth
+    del truth
+
+    # ---- 11. sharded search on phase 4's and phase 7's corpora -----------
+    phase_11(vectors, queries, basis, vv, vq, args.seed, smi, launches)
+    del vectors, queries, vv, vq
     gc.collect()
     torch.cuda.empty_cache()
+
+    # ---- 12. the quantized build at capacity 2^22 ---------------------------
+    phase_12(args.seed, smi, launches)
 
     # ---- 9. the other quantizers, anisotropic PQ, the hierarchy layer ----
     phase_9a(args.seed, args.queries, launches)

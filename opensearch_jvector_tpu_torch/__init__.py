@@ -23,6 +23,7 @@ __all__ = [
     "SearchConfig",
     "SimilarityFunction",
     "VectorIndex",
+    "ShardedVectorIndex",
     "KnnService",
     "parse_knn_query",
     "execute_knn_query",
@@ -44,6 +45,12 @@ def __getattr__(name):  # lazy: the service and query layers load on use
         from opensearch_jvector_tpu_torch.index.index import VectorIndex
 
         return VectorIndex
+    if name == "ShardedVectorIndex":
+        from opensearch_jvector_tpu_torch.parallel.distributed import (
+            ShardedVectorIndex,
+        )
+
+        return ShardedVectorIndex
     if name == "KnnService":
         from opensearch_jvector_tpu_torch.service.http import KnnService
 

@@ -1,8 +1,10 @@
 """gRPC query service (L6 transport parity).
 
 Port of `opensearch_jvector_tpu/grpc/server.py` over the port's
-`IndexManager` (service/http.py). Only this package (grpc/) imports
-`grpc`; where grpcio is not installed the REST service still runs.
+`IndexManager` (service/http.py): a field's index is a `VectorIndex` or,
+for `number_of_shards` > 1, a `ShardedVectorIndex`, served alike. Only
+this package (grpc/) imports `grpc`; where grpcio is not installed the
+REST service still runs.
 
 The reference exposes KNN queries over OpenSearch's gRPC transport by
 registering a QueryBuilderProtoConverter SPI (grpc/proto/request/search/

@@ -232,12 +232,15 @@ class VectorIndex:
                     self._tombstone(name, present)
             self._commit()
 
-    def flush(self, sort_map=None) -> str | None:
+    def flush(self, sort_map=None, device_rows=None) -> str | None:
         """Write the buffered docs as a new segment, commit it, and let the
         merge policy schedule a background merge.
 
         A doc id flushed again supersedes its copies in earlier segments
-        (they are tombstoned, as Lucene's updateDocument does)."""
+        (they are tombstoned, as Lucene's updateDocument does).
+        `device_rows(lo, hi)` optionally returns the buffered rows of
+        positions [lo, hi) as a tensor on the index's device, so that the
+        flush skips their upload (`IndexWriter.flush`)."""
         if self._closed:
             raise RuntimeError("index is closed")
         # one flush at a time: a second concurrent flush would replace
@@ -247,7 +250,8 @@ class VectorIndex:
                 pending: set[int] = set()
                 self._flush_pending = pending
             try:
-                path = self.writer.flush(sort_map=sort_map)
+                path = self.writer.flush(sort_map=sort_map,
+                                         device_rows=device_rows)
             except BaseException:
                 with self._lock:
                     self._flush_pending = None
@@ -604,6 +608,7 @@ class VectorIndex:
                     segs[-1], _ = self._fold_tombstones(seg, per_seg[name])
             path = merge_segments(
                 self.root, segs, out_name, stats=self.stats,
+                builder_batch_size=self.writer.build_batch_size,
                 quantized_build_min_capacity=(
                     self.writer.quantized_build_min_capacity),
                 timings=timings)

@@ -28,8 +28,10 @@ on_disk merge refines its codebooks on a host sample, streams the encode
 and writes the rows to the merged segment's row file, so the corpus never
 reaches the device. A vamana on_disk merge uploads the rows for the build
 (beam candidates scored from the decoded-bf16 cache, prunes on the fp32
-rows) as a vamana on_disk flush does, and a merged capacity at or above
-the quantized-build gate raises like that flush. An on_disk nvq+pq
+rows) as a vamana on_disk flush does; at a merged capacity at or above the
+quantized-build gate it takes that flush's quantized build instead: codes
+from the host rows, the graph from the decoded-bf16 rows of the merged
+ordinals, no fp32 rows on the device. An on_disk nvq+pq
 segment has no row file (NVQ replaces the rows), so its merge runs on the
 device like an in_memory one, with the decoded-PQ beam source.
 """
@@ -55,7 +57,7 @@ from opensearch_jvector_tpu_torch.index.docmap import DocMap
 from opensearch_jvector_tpu_torch.index.segment import Segment, write_segment
 from opensearch_jvector_tpu_torch.index.writer import (
     QUANTIZED_BUILD_MIN_CAPACITY,
-    check_quantized_build_gate,
+    quantized_build,
 )
 from opensearch_jvector_tpu_torch.models import nvq as nvq_mod
 from opensearch_jvector_tpu_torch.models import pq as pq_mod
@@ -115,11 +117,13 @@ class _Merge:
     rows of the non-leading segments and the helpers over them."""
 
     def __init__(self, cfg: DiskAnnConfig, device: torch.device,
-                 batch_size: int | None, gate: int, timings: dict | None):
+                 batch_size: int | None, quantized: bool,
+                 timings: dict | None):
         self.cfg = cfg
         self.device = device
         self.batch_size = batch_size
-        self.gate = gate
+        # the quantized build: the graph builds from the decoded-PQ rows
+        self.quantized = quantized
         self.timings = timings
         # on_disk merges keep the gathered rows on the host; NVQ segments
         # have no host rows in either mode
@@ -253,17 +257,6 @@ def merge_segments(
         cfg = segments[0].config
         device = segments[0].device
         flat = cfg.index_type == "flat"
-        # the merged segment and its sources coexist on the device while
-        # the new graph builds
-        BREAKER.check(
-            BREAKER.estimate_segment_bytes(
-                sum(s.capacity() for s in segments), cfg.dim,
-                0 if flat else cfg.m, cfg.neighbor_overflow,
-                cfg.num_pq_subspaces
-                if cfg.quantization_type != QUANT_NONE else None,
-                keep_fp32=not (flat and cfg.mode == "on_disk")),
-            device,
-        )
         lead_idx = _elect_leading(segments)
         lead = segments[lead_idx]
         others = [s for i, s in enumerate(segments) if i != lead_idx]
@@ -280,8 +273,26 @@ def merge_segments(
             and lead_live / max(lead_used, 1) >= MIN_LEADING_DENSITY
             and lead_live > 0
         )
-        m = _Merge(cfg, device, builder_batch_size,
-                   quantized_build_min_capacity, timings)
+        # the merged size and capacity the gate reads (live counts: an
+        # upper bound on the live, mapped rows the merge gathers)
+        n_live = sum(s.live_count() for s in segments)
+        cap = (max(bucket_capacity(lead_used + n_live - lead_live),
+                   lead.capacity())
+               if use_incremental else bucket_capacity(n_live))
+        quantized = quantized_build(cfg, n_live, cap,
+                                    quantized_build_min_capacity)
+        # the merged segment and its sources coexist on the device while
+        # the new graph builds
+        est = BREAKER.estimate_segment_bytes(
+            sum(s.capacity() for s in segments), cfg.dim,
+            0 if flat else cfg.m, cfg.neighbor_overflow,
+            cfg.num_pq_subspaces
+            if cfg.quantization_type != QUANT_NONE else None,
+            keep_fp32=not (quantized or (flat and cfg.mode == "on_disk")))
+        if quantized:
+            est += n_live * cfg.dim * 2  # the decoded-bf16 build source
+        BREAKER.check(est, device)
+        m = _Merge(cfg, device, builder_batch_size, quantized, timings)
         if use_incremental:
             seg = _incremental_merge(m, lead, others, out_name)
         else:
@@ -317,13 +328,16 @@ def _incremental_merge(m: _Merge, lead: Segment, others: list[Segment],
         used = lead_used + n_new
         capacity = max(bucket_capacity(used), lead.capacity())
         n_live = lead.live_count() + n_new
-        check_quantized_build_gate(cfg, n_live, capacity, m.gate, "merge")
         # [used, d] real rows only, the lead's tombstoned ordinals included
         exact = m.concat([m.as_merge_rows(_materialize_vectors(lead))] + rows)
-        build_rows = pad_rows(_to_device(exact, m.device), capacity)
+        build_rows = (None if m.quantized
+                      else pad_rows(_to_device(exact, m.device), capacity))
     with m.stage("pq"):
-        pqv = m.merged_pq(lead, build_rows[:used], n_live)
+        pqv = m.merged_pq(lead, exact if m.quantized else build_rows[:used],
+                          n_live)
         build_pq = m.build_source(pqv)
+        if m.quantized:  # the decoded rows of the used ordinals
+            build_rows = build_pq["decoded"]
     builder = m.builder()
     graph = lead.graph.with_capacity(capacity)
     if n_new:
@@ -361,9 +375,9 @@ def _full_rebuild_merge(m: _Merge, segments: list[Segment], lead: Segment,
         exact = m.concat(rows)
         n = exact.shape[0]
         cap = bucket_capacity(n)
-        check_quantized_build_gate(cfg, n, cap, m.gate, "merge")
-        # a flat on_disk merge keeps the corpus on the host throughout
-        build_rows = (None if m.flat and m.host
+        # a flat on_disk merge and the quantized build keep the corpus on
+        # the host throughout
+        build_rows = (None if (m.flat and m.host) or m.quantized
                       else _to_device(exact, m.device))
     with m.stage("pq"):
         pqv = m.merged_pq(lead, exact if build_rows is None else build_rows,
@@ -373,8 +387,9 @@ def _full_rebuild_merge(m: _Merge, segments: list[Segment], lead: Segment,
             graph = VamanaGraph.flat(cap, n, m.device)
         else:
             build_pq = m.build_source(pqv)
-            graph = m.builder().build(build_rows, cfg.similarity,
+            src = build_pq["decoded"] if m.quantized else build_rows
+            graph = m.builder().build(src, cfg.similarity,
                                       capacity=cap, pq=build_pq)
-            del build_pq
+            del build_pq, src
     return m.segment(out_name, graph, _docmap(docs, parents), exact,
                      build_rows, pqv)

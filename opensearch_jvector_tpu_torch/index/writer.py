@@ -11,16 +11,24 @@ Port of the flush of `opensearch_jvector_tpu/index/writer.py`:
     PQ trains on a host sample and the encode streams host chunks
   * in_memory segments keep their fp32 rows on the device for the rerank;
     NVQ segments keep the NVQ bytes instead, in either mode; on_disk PQ
-    segments write the rows to the raw row file (`rows.f32`); a vamana
-    on_disk flush scores its build's beam candidates from the decoded-PQ
-    cache (prunes stay exact fp32)
+    segments write the rows to the raw row file (`rows.f32`) from the host
+    buffer; a vamana on_disk flush scores its build's beam candidates from
+    the decoded-PQ cache (prunes stay exact fp32)
+  * the quantized build: an on_disk PQ graph flush of capacity >=
+    `quantized_build_min_capacity` (2^22) never uploads its fp32 rows. PQ
+    trains on a host sample and encodes streamed chunks, and the graph
+    builds from the decoded-bf16 rows `decoded[:n]` (the builder upcasts
+    only the rows each prune gathers) at the segment's capacity. The
+    reference passes the capacity-padded cache instead, so its medoid can
+    land on a pad row. The gate is decided after the in-buffer dedup, so a
+    dedup that falls under the minimum batch takes the fp32 build
+  * `flush(device_rows=...)`: a provider of the same rows already on the
+    device (`device_rows(lo, hi)` -> [hi - lo, d], ingest order, asked for
+    in DEVICE_ROWS_BLOCK-row blocks) feeds the PQ encode and, for an fp32
+    graph build, the upload; the row file is still written from the host
+    buffer. It is ignored after an in-buffer dedup and after a buffered
+    delete compacted the blocks (positions moved)
   * writes the segment with versioned, checksummed containers
-
-Pure quantized construction (on_disk PQ graph flushes of capacity >=
-`quantized_build_min_capacity`) is not ported yet and raises
-NotImplementedError naming its ROADMAP item by its title. The reference's
-device-resident row provider (`flush(device_rows=...)`) is not ported
-either.
 """
 
 from __future__ import annotations
@@ -58,24 +66,25 @@ from opensearch_jvector_tpu_torch.utils.profiling import phase
 
 
 # on_disk PQ graph segments at or above this pow2 capacity take the
-# reference's pure quantized construction (no fp32 rows on the device),
-# which is not ported
+# quantized build (no fp32 rows on the device)
 QUANTIZED_BUILD_MIN_CAPACITY = 1 << 22
+# Rows a flush(device_rows=...) provider is asked for at a time, by the PQ
+# encode and by an fp32 build's upload alike
+DEVICE_ROWS_BLOCK = 1 << 20
 
 
-def check_quantized_build_gate(cfg: DiskAnnConfig, n: int, cap: int,
-                               gate: int, what: str) -> None:
-    """Raise NotImplementedError where an on_disk PQ graph segment of `n`
-    rows and capacity `cap` would need the quantized build."""
-    if (cfg.mode == "on_disk" and cfg.index_type != "flat"
+def quantized_build(cfg: DiskAnnConfig, n: int, cap: int, gate: int) -> bool:
+    """Whether an on_disk graph segment of `n` rows and capacity `cap`
+    builds from its decoded-PQ rows instead of its fp32 rows."""
+    return (cfg.mode == "on_disk" and cfg.index_type != "flat"
             and cfg.quantization_type == QUANT_PQ
-            and n >= cfg.min_batch_size_for_quantization and cap >= gate):
-        raise NotImplementedError(
-            f"an on_disk graph {what} of capacity {cap} (>= {gate}) takes "
-            "the quantized build, which is not ported yet (ROADMAP queue 1, "
-            '"on_disk remnants: the quantized build"; the reference\'s '
-            "quantized build writes a dead-entry graph for non-pow2 "
-            "flushes, ROADMAP queue 3)")
+            and n >= cfg.min_batch_size_for_quantization and cap >= gate)
+
+
+def _provider_blocks(device_rows, n: int):
+    """The `n` rows of a device_rows provider, DEVICE_ROWS_BLOCK at a time."""
+    for lo in range(0, n, DEVICE_ROWS_BLOCK):
+        yield device_rows(lo, min(lo + DEVICE_ROWS_BLOCK, n))
 
 
 class IndexWriter:
@@ -87,6 +96,9 @@ class IndexWriter:
         stats: StatsRegistry = STATS,
     ):
         self.quantized_build_min_capacity = QUANTIZED_BUILD_MIN_CAPACITY
+        # the graph build's insert batch (flushes and merges); None: the
+        # builder sizes it
+        self.build_batch_size: int | None = None
         self.root = Path(root)
         self.config = config
         self.device = torch.device(device)
@@ -94,6 +106,10 @@ class IndexWriter:
         self._blocks: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
         self._buffered = 0
         self._buf_lock = threading.Lock()
+        # set when a buffered delete compacts the blocks: the buffer's
+        # positions no longer match the ingest order a device_rows provider
+        # was built against, so the next flush ignores its provider
+        self._buffer_positions_dirty = False
         # resume the counter past existing segments: a reopened index must
         # never reuse a segment name
         counter = -1
@@ -160,14 +176,17 @@ class IndexWriter:
             if removed:
                 self._blocks = new_blocks
                 self._buffered -= removed
+                self._buffer_positions_dirty = True
         return removed
 
-    def _quantize_for_flush(self, vectors: torch.Tensor | np.ndarray):
+    def _quantize_for_flush(self, vectors: torch.Tensor | np.ndarray,
+                            device_rows=None):
         """Train the configured quantizer and encode when n >= min batch
         -> (pqv, nvq, scalar), each None where it does not apply; `scalar`
         is a (QuantizationState, packed codes) pair for the 1/2/4-bit
-        modes. A numpy corpus (flat segments) trains PQ on a host sample
-        and streams its encode."""
+        modes. A numpy corpus (flat segments, the quantized build) trains
+        PQ on a host sample and streams its encode, from `device_rows`
+        blocks where a provider is given."""
         cfg = self.config
         n = vectors.shape[0]
         if (cfg.quantization_type == QUANT_NONE
@@ -184,50 +203,55 @@ class IndexWriter:
                 vectors, cfg.similarity, num_subspaces=cfg.num_pq_subspaces,
                 device=self.device,
                 anisotropic_eta=pq_mod.eta_from_config(cfg, vectors))
-            pqv = pq_mod.PQVectors(
-                pq=pq, codes=pq_mod.encode(pq, vectors, cfg.similarity))
+            if device_rows is not None:
+                codes = torch.cat([pq_mod.encode(pq, rows, cfg.similarity)
+                                   for rows in _provider_blocks(device_rows,
+                                                                n)])
+            else:
+                codes = pq_mod.encode(pq, vectors, cfg.similarity)
+            pqv = pq_mod.PQVectors(pq=pq, codes=codes)
             if cfg.quantization_type == QUANT_NVQ:
                 nvq = nvq_mod.train_nvq(vectors, cfg.nvq_num_subvectors)
         self.stats.increment(Counter.KNN_QUANTIZATION_TRAINING_TIME,
                              int((time.monotonic() - t0) * 1000))
         return pqv, nvq, scalar
 
-    def flush(self, name: str | None = None, sort_map=None) -> Path | None:
+    def flush(self, name: str | None = None, sort_map=None,
+              device_rows=None) -> Path | None:
         """Build + persist a segment from the buffered docs; clears buffer.
 
         `sort_map` (old_doc -> new_doc) applies index sorting to the doc
-        map. A failed build restores the buffer so the flush can be
-        retried."""
+        map. `device_rows(lo, hi)` optionally returns the same rows as a
+        tensor on the device (see the module docstring); it must hold the
+        buffered values, which stay the durable copy. A failed build
+        restores the buffer so the flush can be retried."""
         with self._buf_lock:
             blocks, count = self._blocks, self._buffered
+            dirty = self._buffer_positions_dirty
             self._blocks, self._buffered = [], 0
+            self._buffer_positions_dirty = False
         if not count:
             return None
         try:
             with phase("flush", stats=self.stats):
-                return self._build_and_write(blocks, count, name, sort_map)
+                return self._build_and_write(
+                    blocks, count, name, sort_map,
+                    None if dirty else device_rows)
         except BaseException:
             with self._buf_lock:
                 self._blocks = blocks + self._blocks
                 self._buffered += count
+                self._buffer_positions_dirty |= dirty
             raise
 
     def _build_and_write(self, blocks, count: int, name: str | None,
-                         sort_map) -> Path:
+                         sort_map, device_rows) -> Path:
         cfg = self.config
         with self._buf_lock:
             counter = self._flush_counter
             self._flush_counter += 1
         flat = cfg.index_type == "flat"
         on_disk = cfg.mode == "on_disk"
-        BREAKER.check(
-            BREAKER.estimate_segment_bytes(
-                count, cfg.dim, 0 if flat else cfg.m, cfg.neighbor_overflow,
-                cfg.num_pq_subspaces
-                if cfg.quantization_type != QUANT_NONE else None,
-                keep_fp32=not (flat and on_disk)),
-            self.device,
-        )
         vectors_np = (blocks[0][2] if len(blocks) == 1
                       else np.concatenate([b[2] for b in blocks]))
         doc_ids = np.concatenate([b[0] for b in blocks])
@@ -239,18 +263,32 @@ class IndexWriter:
             keep = np.sort(doc_ids.size - 1 - last_rev)
             doc_ids, parent_ids = doc_ids[keep], parent_ids[keep]
             vectors_np = vectors_np[keep]
+            device_rows = None  # positions moved: the provider misaligns
         n = int(doc_ids.size)
         name = name or f"seg_{counter:06d}_{n}"
         cap = bucket_capacity(n)
-        check_quantized_build_gate(cfg, n, cap,
-                                   self.quantized_build_min_capacity, "flush")
-        # flat segments keep the corpus on the host (train on a host
-        # sample, streamed encode); graph builds need the rows on the device
-        vectors = np.ascontiguousarray(vectors_np, np.float32)
-        if not flat:
-            vectors = torch.from_numpy(vectors).to(self.device)
+        quantized = quantized_build(cfg, n, cap,
+                                    self.quantized_build_min_capacity)
+        est = BREAKER.estimate_segment_bytes(
+            n, cfg.dim, 0 if flat else cfg.m, cfg.neighbor_overflow,
+            cfg.num_pq_subspaces
+            if cfg.quantization_type != QUANT_NONE else None,
+            keep_fp32=not (quantized or (flat and on_disk)))
+        if quantized:
+            est += n * cfg.dim * 2  # the decoded-bf16 build source
+        BREAKER.check(est, self.device)
+        # flat segments and the quantized build keep the corpus on the
+        # host (train on a host sample, streamed encode); an fp32 graph
+        # build needs the rows on the device
+        host = np.ascontiguousarray(vectors_np, np.float32)
+        vectors = host
+        if not (flat or quantized):
+            vectors = (torch.cat(list(_provider_blocks(device_rows, n)))
+                       if device_rows is not None
+                       else torch.from_numpy(host).to(self.device))
+            device_rows = None  # the rows are on the device now
 
-        pqv, nvq, scalar = self._quantize_for_flush(vectors)
+        pqv, nvq, scalar = self._quantize_for_flush(vectors, device_rows)
 
         t0 = time.monotonic()
         if flat:
@@ -261,13 +299,17 @@ class IndexWriter:
                 beam_width=cfg.ef_construction, alpha=cfg.alpha,
                 neighbor_overflow=cfg.neighbor_overflow,
                 hierarchy_enabled=cfg.hierarchy_enabled,
+                batch_size=self.build_batch_size,
             )
             build_pq = None
             if on_disk and pqv is not None:
                 build_pq = {"decoded": pqv.decode_bf16()}
-            graph = builder.build(vectors, cfg.similarity, capacity=cap,
+            # the quantized build's only corpus on the device: the decoded
+            # rows of the n real ordinals, built at the segment's capacity
+            src = build_pq["decoded"] if quantized else vectors
+            graph = builder.build(src, cfg.similarity, capacity=cap,
                                   pq=build_pq)
-            del build_pq
+            del build_pq, src
         self.stats.increment(Counter.KNN_GRAPH_BUILD_TIME,
                              int((time.monotonic() - t0) * 1000))
 
@@ -285,11 +327,13 @@ class IndexWriter:
                                      params=pad_rows(nvq.params, cap),
                                      global_mean=nvq.global_mean)
             vectors = None
-        elif not (on_disk and pqv is not None):
-            # (on_disk PQ rows, host or device, go to the row file as they
-            # are, sliced to the used prefix: no padding needed)
+        elif on_disk and pqv is not None:
+            # the row file is written from the host buffer, sliced to the
+            # used prefix: no padding needed
+            vectors = host
+        else:
             if flat:  # in-memory flat rows serve the scan on the device
-                vectors = torch.from_numpy(vectors).to(self.device)
+                vectors = torch.from_numpy(host).to(self.device)
             vectors = pad_rows(vectors, cap)
         seg = Segment(
             name=name, config=cfg, graph=graph, docmap=docmap,

@@ -21,10 +21,12 @@ keeps only the degree mirror and the small edge lists. There is no batch
 padding: the reference pads rounds to power-of-two widths only to bound
 XLA compiles. `build(..., pq={"decoded": cache})` scores the insert
 rounds' beam candidates from a bf16 decoded-PQ cache (the on_disk flush's
-build source) while every prune stays on the fp32 rows. With
-`hierarchy_enabled`, `cleanup` adds the coarse upper layer
-(`_build_upper_layer`). Pure quantized construction (no fp32 rows on the
-device) waits (ROADMAP queue 1, "on_disk remnants: the quantized build").
+build source) while every prune stays on the fp32 rows. A bf16 source is
+passed through as it is (`_build_rows`): that is the quantized build, where
+the decoded cache is the only corpus on the device, beam scoring reads it
+as it is, and every prune, bootstrap and cleanup site upcasts the rows it
+gathers, never the corpus. With `hierarchy_enabled`, `cleanup` adds the
+coarse upper layer (`_build_upper_layer`).
 """
 
 from __future__ import annotations
@@ -57,6 +59,29 @@ SPLICE_GATHER_BYTES = 1 << 30
 # construction default) and the default seed of the insert order.
 CONSTRUCTION_EXPANSIONS = 8
 BUILD_SEED = 42
+
+
+def _build_rows(vectors: torch.Tensor) -> torch.Tensor:
+    """Build-source rows: float32, or a bf16 source as it is (the quantized
+    build's decoded-PQ cache)."""
+    return vectors if vectors.dtype == torch.bfloat16 else vectors.float()
+
+
+def _float_blocks(vectors: torch.Tensor):
+    """(lo, rows as float32) over all of `vectors`: one block for a float32
+    source, ORPHAN_SCAN_BLOCK rows at a time for a bf16 one, so a corpus-wide
+    pass never holds a float32 copy of the corpus."""
+    n = vectors.shape[0]
+    step = ORPHAN_SCAN_BLOCK if vectors.dtype == torch.bfloat16 else n
+    for lo in range(0, n, max(step, 1)):
+        yield lo, vectors[lo: lo + step].float()
+
+
+def _scores_to_rows(row: torch.Tensor, vectors: torch.Tensor,
+                    simf: SimilarityFunction) -> torch.Tensor:
+    """[1, d] float32 row against every row of `vectors` -> [n] scores."""
+    return torch.cat([pairwise_scores(row, blk, simf)[0]
+                      for _, blk in _float_blocks(vectors)])
 
 
 def _score_to_dist(scores: torch.Tensor,
@@ -121,12 +146,12 @@ def _nearest_hostable(ob: torch.Tensor, vectors: torch.Tensor,
     ORPHAN_SCAN_BLOCK-wide corpus blocks. Returns [len(ob)] int64 ids."""
     cap = vectors.shape[0]
     cb = min(cap, ORPHAN_SCAN_BLOCK)
-    rows = vectors[ob]
+    rows = vectors[ob].float()
     best_s = torch.full((ob.shape[0],), NEG_INF, device=vectors.device)
     best_i = torch.zeros((ob.shape[0],), dtype=torch.long,
                          device=vectors.device)
     for lo in range(0, cap, cb):
-        sc = pairwise_scores(rows, vectors[lo: lo + cb], simf)
+        sc = pairwise_scores(rows, vectors[lo: lo + cb].float(), simf)
         sc = torch.where(hostable[lo: lo + cb][None, :], sc, NEG_INF)
         bs, bi = torch.max(sc, dim=1)
         take = bs > best_s
@@ -234,6 +259,8 @@ class GraphIndexBuilder:
         `pq` the candidates score from its decoded cache."""
         r = self.beam_width
         e = CONSTRUCTION_EXPANSIONS
+        if pq is None and vectors.dtype == torch.bfloat16:
+            pq = {"decoded": vectors}
         params = searcher_mod.SearchParams(
             k=r, ef_search=r, overquery_factor=1, expansions_per_iter=e,
             # the beam stops after ~ceil(ef/E) iterations; +8 covers
@@ -320,8 +347,8 @@ class GraphIndexBuilder:
                 ex = torch.as_tensor(extras[s: s + chunk], device=dev)
                 cand = torch.cat([cand, ex.to(torch.int32)], dim=1)
             cand = cand.long()
-            pvecs = vectors[ids_t]
-            cvecs = vectors[cand.clamp(min=0)]
+            pvecs = vectors[ids_t].float()
+            cvecs = vectors[cand.clamp(min=0)].float()
             scores = torch.where(
                 cand >= 0, batched_candidate_scores(pvecs, cvecs, simf),
                 NEG_INF)
@@ -339,7 +366,7 @@ class GraphIndexBuilder:
         state for `_round_finish`."""
         dev = st.adj.device
         batch_t = torch.as_tensor(batch, device=dev)
-        queries = vectors[batch_t]
+        queries = vectors[batch_t].float()
         cand_ids, cand_scores = self._search_candidates(
             st.adj, live_dev, entry, vectors, queries, simf, pq)
         b = batch.size
@@ -377,7 +404,7 @@ class GraphIndexBuilder:
 
     def build(
         self,
-        vectors: torch.Tensor,  # [N, d] on the build device
+        vectors: torch.Tensor,  # [N, d] on the build device, fp32 or bf16
         simf: SimilarityFunction,
         capacity: int | None = None,
         pq: dict | None = None,  # {"decoded": [N, d] bf16}: beam source
@@ -387,16 +414,21 @@ class GraphIndexBuilder:
         `capacity` (>= n) is rounded up to a power of two, the segment
         format's ordinal space. With `pq`, the insert rounds' beam
         candidates score from `pq["decoded"]`; prunes, bootstrap and
-        cleanup score the fp32 rows."""
+        cleanup score the fp32 rows. A bf16 `vectors` is the quantized
+        build: it is the beam source too, and the prunes upcast the rows
+        they gather."""
         n = int(vectors.shape[0])
         dev = vectors.device
         cap_deg = self.overflow_degree
         if n == 0:
             return VamanaGraph.empty(capacity or 0, cap_deg, dev)
         capacity = bucket_capacity(max(capacity or 0, n))
-        vectors = pad_rows(vectors.float(), capacity)
+        source = vectors
+        vectors = pad_rows(_build_rows(vectors), capacity)
         if pq is not None:
-            pq = {"decoded": pad_rows(pq["decoded"], capacity)}
+            # the quantized build passes its decoded rows as both: pad once
+            pq = {"decoded": vectors if pq["decoded"] is source
+                  else pad_rows(pq["decoded"], capacity)}
 
         st = _DeviceAdj(
             torch.full((capacity, cap_deg), -1, dtype=torch.int32,
@@ -409,8 +441,9 @@ class GraphIndexBuilder:
 
         # entry point: medoid approximation = nearest to the mean of the n
         # real rows (pad rows excluded)
-        mean = torch.mean(vectors[:n], dim=0, keepdim=True)
-        escores = pairwise_scores(mean, vectors, simf)[0]
+        mean = torch.mean(vectors[:n], dim=0, keepdim=True,
+                          dtype=torch.float32)
+        escores = _scores_to_rows(mean, vectors, simf)
         escores[n:] = NEG_INF
         entry = int(torch.argmax(escores))
 
@@ -470,7 +503,7 @@ class GraphIndexBuilder:
         in place."""
         dev = graph.adjacency.device
         st = _DeviceAdj(graph.adjacency, graph.degrees.cpu().numpy().copy())
-        vectors = pad_rows(vectors.float(), graph.capacity)
+        vectors = pad_rows(_build_rows(vectors), graph.capacity)
         if pq is not None:
             pq = {"decoded": pad_rows(pq["decoded"], graph.capacity)}
         ids_all = np.nonzero(graph.live.cpu().numpy())[0]
@@ -482,7 +515,7 @@ class GraphIndexBuilder:
                 batch_t = torch.as_tensor(batch, device=dev)
                 cand_ids, _ = self._search_candidates(
                     st.adj, graph.live, graph.entry, vectors,
-                    vectors[batch_t], simf, pq)
+                    vectors[batch_t].float(), simf, pq)
                 self._prune_overflow(
                     st, batch, vectors, simf,
                     extras=cand_ids[:, : 2 * self.max_degree])
@@ -513,9 +546,11 @@ class GraphIndexBuilder:
         st = _DeviceAdj(graph.adjacency.clone(),
                         graph.degrees.cpu().numpy().copy())
         live_dev = graph.live.clone()
-        vectors = pad_rows(vectors.float(), graph.capacity)
+        source = vectors
+        vectors = pad_rows(_build_rows(vectors), graph.capacity)
         if pq is not None:
-            pq = {"decoded": pad_rows(pq["decoded"], graph.capacity)}
+            pq = {"decoded": vectors if pq["decoded"] is source
+                  else pad_rows(pq["decoded"], graph.capacity)}
         # tombstoned nodes that the loaded adjacency still references must
         # be masked out of the candidate pools: probed on the device, one
         # scalar read back
@@ -555,7 +590,7 @@ class GraphIndexBuilder:
             return
         dev = st.adj.device
         ids_t = torch.as_tensor(ids, device=dev)
-        v = vectors[ids_t]
+        v = vectors[ids_t].float()
         scores = pairwise_scores(v, v, simf)
         scores.fill_diagonal_(NEG_INF)
         cand_scores, idx = torch.topk(
@@ -580,7 +615,7 @@ class GraphIndexBuilder:
         st = _DeviceAdj(graph.adjacency, graph.degrees.cpu().numpy().copy())
         live = graph.live.cpu().numpy()
         live_dev = graph.live
-        vectors = pad_rows(vectors.float(), graph.capacity)
+        vectors = pad_rows(_build_rows(vectors), graph.capacity)
 
         adj = st.adj.long()
         has_dead = torch.any((adj >= 0) & ~live_dev[adj.clamp(min=0)], dim=1)
@@ -611,9 +646,11 @@ class GraphIndexBuilder:
         entry = int(graph.entry)
         if not live[entry] and live.any():
             lm = live_dev[:, None].float()
-            mean = torch.sum(vectors * lm, 0, keepdim=True) / torch.clamp(
-                lm.sum(), min=1.0)
-            s = pairwise_scores(mean, vectors, simf)[0]
+            mean = sum(torch.sum(blk * lm[lo: lo + blk.shape[0]], 0,
+                                 keepdim=True)
+                       for lo, blk in _float_blocks(vectors))
+            mean = mean / torch.clamp(lm.sum(), min=1.0)
+            s = _scores_to_rows(mean, vectors, simf)
             entry = int(torch.argmax(torch.where(live_dev, s, NEG_INF)))
 
         # reachability repair: overflow pruning can drop a node's only
@@ -662,7 +699,7 @@ class GraphIndexBuilder:
             batch_size=min(self.batch_size, 1024), seed=self.seed + 11)
         dev = vectors.device
         members_t = torch.as_tensor(members, device=dev)
-        sub_graph = sub.build(vectors[members_t], simf)
+        sub_graph = sub.build(vectors[members_t].float(), simf)
         # the sub-build pads to its own capacity; only the first
         # len(members) rows are real nodes
         local = sub_graph.adjacency[: members.size, :m_up].long()
@@ -685,9 +722,9 @@ class GraphIndexBuilder:
         cand = torch.cat([rows, hop2], dim=1)
         cand = torch.where(live_dev[cand.clamp(min=0)] & (cand >= 0), cand, -1)
         cand = torch.where(cand == ids[:, None], -1, cand)
-        pvecs = vectors[ids]
-        scores = batched_candidate_scores(pvecs, vectors[cand.clamp(min=0)],
-                                          simf)
+        pvecs = vectors[ids].float()
+        scores = batched_candidate_scores(
+            pvecs, vectors[cand.clamp(min=0)].float(), simf)
         # one occurrence per id (sort + adjacent-equal), before the top-k
         order = torch.argsort(cand, dim=1, stable=True)
         sc = torch.gather(cand, 1, order)
@@ -701,8 +738,8 @@ class GraphIndexBuilder:
         top_cand = torch.gather(cand, 1, top_idx)
         top_cand = torch.where(top_scores > NEG_INF, top_cand, -1)
         sel = robust_prune_batch(
-            pvecs, top_cand, vectors[top_cand.clamp(min=0)], top_scores,
-            self.alpha, self.max_degree, simf, point_ids=ids)
+            pvecs, top_cand, vectors[top_cand.clamp(min=0)].float(),
+            top_scores, self.alpha, self.max_degree, simf, point_ids=ids)
         st.write_rows(ids, sel)
         return sel
 

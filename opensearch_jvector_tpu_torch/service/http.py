@@ -3,8 +3,10 @@
 Port of `opensearch_jvector_tpu/service/http.py`. Every index the service
 makes lives on the service's device (`KnnService(root, device="cuda")` on
 the card, `device="cpu"` for tests); a CUDA service without a card raises
-at construction. Indexes are single-shard: `number_of_shards` > 1 answers
-400 until the sharded slice lands (ROADMAP queue 1, "Sharded search").
+at construction. `number_of_shards` > 1 makes each field a
+`ShardedVectorIndex`, searched on the service's `mesh` (a device list, see
+`parallel/sharded.py`) where the mesh has one device per shard, else over
+the shards' host fan-out; the stats route folds in the shards' registries.
 
 Routes mirror the reference's user-facing API shape:
   GET  /_plugins/_knn/stats[/{stat}]      node stats
@@ -58,6 +60,8 @@ from opensearch_jvector_tpu_torch.api.mapping import (
 from opensearch_jvector_tpu_torch.api.settings import GLOBAL_SETTINGS
 from opensearch_jvector_tpu_torch.api.stats import STATS
 from opensearch_jvector_tpu_torch.index.index import VectorIndex, resolve_device
+from opensearch_jvector_tpu_torch.parallel import sharded
+from opensearch_jvector_tpu_torch.parallel.distributed import ShardedVectorIndex
 from opensearch_jvector_tpu_torch.query import knn as knn_mod
 from opensearch_jvector_tpu_torch.query import mmr as mmr_mod
 from opensearch_jvector_tpu_torch.query.builder import parse_knn_query
@@ -150,8 +154,11 @@ class IndexManager:
     (missing-field semantics)."""
 
     def __init__(self, root: str | Path, *, device: torch.device | str = "cuda",
-                 batcher=None):
+                 batcher=None, mesh=None):
         self.device = resolve_device(device)
+        # sharded indexes whose shard count matches the mesh's size search
+        # on the mesh
+        self.mesh = None if mesh is None else sharded.make_mesh(mesh)
         self.root = Path(root)
         self.root.mkdir(parents=True, exist_ok=True)
         self._lock = threading.Lock()
@@ -174,9 +181,24 @@ class IndexManager:
             with self._stage_lock:
                 self.stage_seconds[name] += dt
 
-    def _make(self, name: str, field: str, config) -> VectorIndex:
-        return VectorIndex(self.root / name / field, config,
-                           device=self.device)
+    def _make(self, name: str, field: str, config, n_shards: int = 1):
+        """The field's index: sharded when asked for, or when its directory
+        already holds a sharded index (which keeps its own shard count)."""
+        root = self.root / name / field
+        if n_shards > 1 or (root / "shards.json").exists():
+            idx = ShardedVectorIndex(root, config, n_shards=n_shards,
+                                     device=self.device)
+            # one mesh device per shard, or the shards' host fan-out
+            if self.mesh is not None and len(self.mesh) == idx.n_shards:
+                idx.attach_mesh(self.mesh)
+            return idx
+        return VectorIndex(root, config, device=self.device)
+
+    def indexes(self) -> list:
+        """Every registered field index (a snapshot)."""
+        with self._lock:
+            return [i for f in self._indices.values() if isinstance(f, dict)
+                    for i in f.values()]
 
     def close(self) -> None:
         """Quiesce every index (joins in-flight flushes and merges, closes
@@ -199,8 +221,8 @@ class IndexManager:
             raise ValidationError(
                 "index mapping needs at least one knn_vector field"
             )
-        # index.number_of_shards (OpenSearch core setting): one shard a
-        # field until the sharded slice lands
+        # index.number_of_shards (OpenSearch core setting): > 1 makes a
+        # ShardedVectorIndex per field
         sset = (settings or {}).get("index") or settings or {}
         try:
             n_shards = int(sset.get("number_of_shards", 1))
@@ -208,10 +230,6 @@ class IndexManager:
             raise ValidationError("number_of_shards must be an integer")
         if n_shards < 1:
             raise ValidationError("number_of_shards must be >= 1")
-        if n_shards > 1:
-            raise ValidationError(
-                f"number_of_shards {n_shards}: sharded indexes are not "
-                f"ported yet (ROADMAP queue 1, \"Sharded search\"); use 1")
         parsed = {f: parse_knn_vector_mapping(m) for f, m in knn_fields}
 
         # reserve the name under the lock, construct OUTSIDE it (shard/dir
@@ -224,7 +242,7 @@ class IndexManager:
                 raise ValidationError(f"index {name} already exists")
             self._indices[name] = _PENDING  # reservation (404 until ready)
         try:
-            built = {f: self._make(name, f, config)
+            built = {f: self._make(name, f, config, n_shards)
                      for f, (config, _) in parsed.items()}
         except BaseException:
             with self._lock:
@@ -243,7 +261,7 @@ class IndexManager:
         index (the OpenSearch dynamic-mapping-update surface). Existing
         fields may be re-sent only with an IDENTICAL mapping (no-op);
         conflicting updates are rejected, as core rejects incompatible
-        mapper changes."""
+        mapper changes. New fields take the index's shard count."""
         props = (mappings or {}).get("properties") or {}
         knn_fields = [
             (f, m) for f, m in props.items()
@@ -266,7 +284,9 @@ class IndexManager:
                 continue  # identical re-send: no-op
             fresh[f] = config
         if fresh:
-            built = {f: self._make(name, f, c) for f, c in fresh.items()}
+            n_shards = getattr(next(iter(current.values())), "n_shards", 1)
+            built = {f: self._make(name, f, c, n_shards)
+                     for f, c in fresh.items()}
             with self._lock:
                 val = self._indices.get(name)
                 if not isinstance(val, dict):
@@ -379,6 +399,12 @@ def _make_handler(mgr: IndexManager):
                 )
                 if m:
                     snap = STATS.snapshot()
+                    # sharded indexes count in their own per-shard
+                    # registries: fold them in
+                    for idx in mgr.indexes():
+                        if callable(idx.stats):
+                            for k, val in idx.stats().items():
+                                snap[k] = snap.get(k, 0) + val
                     if m.group(1):
                         keys = m.group(1).split(",")
                         missing = [k for k in keys if k not in snap]
@@ -398,6 +424,8 @@ def _make_handler(mgr: IndexManager):
                     }
                     fields = mgr.get(m.group(1))
                     props = {}
+                    n_shards = getattr(next(iter(fields.values())),
+                                       "n_shards", 1)
                     for f, idx in fields.items():
                         cfg = idx.config
                         params = {
@@ -438,7 +466,7 @@ def _make_handler(mgr: IndexManager):
                         m.group(1): {
                             "mappings": {"properties": props},
                             "settings": {"index": {
-                                "number_of_shards": 1,
+                                "number_of_shards": n_shards,
                             }},
                         },
                     })
@@ -835,12 +863,13 @@ class KnnService:
 
     def __init__(self, root: str | Path, host: str = "127.0.0.1",
                  port: int = 0, *, device: torch.device | str = "cuda",
-                 batch_window_ms: float = 2.0):
+                 batch_window_ms: float = 2.0, mesh=None):
         # batch_window_ms > 0 enables request coalescing (MicroBatcher);
         # 0 serves every request as its own device dispatch
         batcher = (MicroBatcher(window_ms=batch_window_ms)
                    if batch_window_ms and batch_window_ms > 0 else None)
-        self.manager = IndexManager(root, device=device, batcher=batcher)
+        self.manager = IndexManager(root, device=device, batcher=batcher,
+                                    mesh=mesh)
         self.server = _Server((host, port), _make_handler(self.manager))
         self._thread: threading.Thread | None = None
 

@@ -633,3 +633,80 @@ def test_rest_service_on_card_answers_as_the_inprocess_search(card,
     finally:
         svc.stop()
         svc.manager.close()
+
+
+@pytest.mark.parametrize("mode", ["in_memory", "on_disk"])
+def test_mesh_on_card_matches_cpu(mode, card, corpus, tmp_path):
+    """One 3-shard segment set (two segments a shard, some deletes),
+    searched on a mesh of cuda:0 x 3 and of cpu x 3: the same docs (recall
+    of one against the other >= 0.99) and scores where the docs agree; the
+    on_disk set runs the approx-only phase and the paged rerank."""
+    from opensearch_jvector_tpu_torch.parallel.distributed import (
+        ShardedVectorIndex,
+    )
+
+    vectors, queries = corpus
+    cfg = DiskAnnConfig(dim=32, num_pq_subspaces=16, mode=mode,
+                        min_batch_size_for_quantization=256)
+    idx = ShardedVectorIndex(tmp_path, cfg, n_shards=3, device="cpu")
+    for lo in (0, 3000):
+        idx.add_batch(np.arange(lo, lo + 3000), vectors[lo: lo + 3000])
+        idx.flush()
+    idx.delete(np.arange(0, 6000, 50))
+    idx.close()
+    out = {}
+    for dev in ("cpu", card):
+        sidx = ShardedVectorIndex(tmp_path, device=dev,
+                                  mesh=[dev if dev == "cpu" else "cuda:0"] * 3)
+        out[str(dev)] = sidx.search(queries, SearchConfig(k=10))
+        assert sidx._mesh_state is not None
+        assert sidx._mesh_state.approx_only == (mode == "on_disk")
+        assert sidx.stats()["knn_mesh_restack_count"] == 3
+        sidx.close()
+    cpu, got = out["cpu"], out[str(card)]
+    assert not np.isin(got.doc_ids, np.arange(0, 6000, 50)).any()
+    assert recall_at_k(got.doc_ids, cpu.doc_ids, 10) >= 0.99
+    same = got.doc_ids == cpu.doc_ids
+    np.testing.assert_allclose(got.scores[same], cpu.scores[same], rtol=1e-4,
+                               atol=1e-6)
+
+
+def test_quantized_build_and_device_rows_on_card(card, corpus, tmp_path):
+    """flush(device_rows=...) from rows already on the card: the codes
+    equal a host flush's on the card, the build source is the bf16
+    decoded cache, and the segment reaches the recall band."""
+    from opensearch_jvector_tpu_torch.models import builder as tbuilder
+
+    vectors, queries = corpus
+    rows = torch.as_tensor(vectors, device=card)
+    cfg = DiskAnnConfig(dim=32, num_pq_subspaces=16, mode="on_disk")
+    segs, opened = [], []
+    for provider in (None, lambda lo, hi: rows[lo:hi]):
+        idx = VectorIndex(tmp_path / str(provider is None), cfg, device=card)
+        opened.append(idx)
+        idx.writer.quantized_build_min_capacity = 1
+        idx.add_batch(np.arange(6000), vectors)
+        name = idx.flush(device_rows=provider)
+        segs.append(idx._reader(name).seg)
+        got = idx.search(queries, SearchConfig(k=10, overquery_factor=10))
+    assert torch.equal(segs[0].pqv.codes, segs[1].pqv.codes)
+    np.testing.assert_array_equal(segs[1].row_store.gather(np.arange(6000)),
+                                  vectors)
+    assert segs[1].graph.live[segs[1].graph.entry]
+    truth = ground_truth_topk(torch.from_numpy(queries),
+                              torch.from_numpy(vectors), 10,
+                              SimilarityFunction.EUCLIDEAN)
+    assert recall_at_k(got.doc_ids, truth, 10) >= 0.9
+    seen = []
+    real = tbuilder.GraphIndexBuilder.cleanup
+    try:
+        tbuilder.GraphIndexBuilder.cleanup = (
+            lambda self, g, rows_, *a: seen.append(rows_.dtype)
+            or real(self, g, rows_, *a))
+        idx.add_batch(np.arange(6000, 7500), vectors[:1500])
+        idx.flush()
+    finally:
+        tbuilder.GraphIndexBuilder.cleanup = real
+        for i in opened:
+            i.close()
+    assert seen == [torch.bfloat16]

@@ -978,7 +978,17 @@ def test_on_disk_merge_writes_live_rows_in_order(index_type, tmp_path,
     np.testing.assert_array_equal(jseg.docmap.ord_to_doc, docs)
 
 
-def test_on_disk_merge_at_the_quantized_build_gate_raises(tmp_path):
+def test_on_disk_merge_at_the_quantized_build_gate_raises(tmp_path,
+                                                          monkeypatch):
+    """At the quantized-build gate the merge charges the breaker the
+    decoded-bf16 source and no fp32 rows; a refused merge raises and leaves
+    the segment set as it was, an allowed one builds from the bf16 rows
+    without uploading the host rows."""
+    from opensearch_jvector_tpu_torch.utils.circuit_breaker import (
+        BREAKER,
+        CircuitBreakerException,
+    )
+
     idx = _on_disk(tmp_path, "vamana")
     v = _latent(np.random.default_rng(33), 500)
     idx.add_batch(np.arange(300), v[:300])
@@ -986,12 +996,37 @@ def test_on_disk_merge_at_the_quantized_build_gate_raises(tmp_path):
     idx.add_batch(np.arange(300, 500), v[300:])
     idx.flush()
     idx.writer.quantized_build_min_capacity = 512  # merged capacity: 512
-    with pytest.raises(NotImplementedError, match="quantized build"):
+    charged = []
+
+    class Refusing:  # the merge's breaker (segment loads keep theirs)
+        estimate_segment_bytes = staticmethod(BREAKER.estimate_segment_bytes)
+
+        def check(self, nbytes, device):
+            charged.append(nbytes)
+            raise CircuitBreakerException("refused")
+
+    monkeypatch.setattr(tmerge, "BREAKER", Refusing())
+    with pytest.raises(CircuitBreakerException):
         idx.force_merge()
     assert len(idx.segment_names) == 2 and idx._merging == set()
-    idx.writer.quantized_build_min_capacity = 1024
-    idx.force_merge()
+    cfg = idx.config
+    assert charged == [BREAKER.estimate_segment_bytes(
+        512 + 256, DIM, cfg.m, cfg.neighbor_overflow, cfg.num_pq_subspaces,
+        keep_fp32=False) + 500 * DIM * 2]
+    monkeypatch.undo()
+    sources = []
+    real = tbuilder.GraphIndexBuilder.cleanup
+    monkeypatch.setattr(tbuilder.GraphIndexBuilder, "cleanup",
+                        lambda self, g, rows, *a: sources.append(
+                            rows.dtype) or real(self, g, rows, *a))
+    uploads = _spy_uploads(monkeypatch)
+    name = idx.force_merge()
+    assert sources == [torch.bfloat16] and uploads == []
     assert idx.doc_count() == 500
+    seg = idx._reader(name).seg
+    assert seg.row_store is not None and seg.vectors is None
+    np.testing.assert_array_equal(seg.row_store.gather(np.arange(500)),
+                                  v[seg.docmap.ord_to_doc])
     idx.close()
 
 

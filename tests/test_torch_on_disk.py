@@ -28,13 +28,18 @@ from opensearch_jvector_tpu.index.index import VectorIndex as JIndex
 from opensearch_jvector_tpu.index.scheduler import ForceMergesOnlyMergePolicy
 from opensearch_jvector_tpu.utils import circuit_breaker as jbreaker
 from opensearch_jvector_tpu_torch.api import config as tconfig
+from opensearch_jvector_tpu_torch.api.settings import GLOBAL_SETTINGS
 from opensearch_jvector_tpu_torch.index import reader as treader
 from opensearch_jvector_tpu_torch.index import segment as tsegment
 from opensearch_jvector_tpu_torch.index.index import VectorIndex
 from opensearch_jvector_tpu_torch.index.store import CorruptSegmentError
 from opensearch_jvector_tpu_torch.index.writer import IndexWriter
+from opensearch_jvector_tpu_torch.models import builder as tbuilder
 from opensearch_jvector_tpu_torch.ops.distances import SimilarityFunction
-from opensearch_jvector_tpu_torch.utils.circuit_breaker import BREAKER
+from opensearch_jvector_tpu_torch.utils.circuit_breaker import (
+    BREAKER,
+    CircuitBreakerException,
+)
 from opensearch_jvector_tpu_torch.utils.ground_truth import (
     ground_truth_topk,
     recall_at_k,
@@ -259,15 +264,32 @@ def test_port_flat_flush_keeps_rows_on_the_host(corpus, tmp_path):
     seg.row_store.close()
 
 
-def test_quantized_build_flush_raises(tmp_path):
-    """An on_disk graph flush whose capacity reaches 2^22 would take the
-    reference's pure quantized build, which is not ported: the flush
-    raises and keeps its buffer."""
-    w = IndexWriter(tmp_path, tconfig.DiskAnnConfig(
-        dim=4, quantization_type="pq", num_pq_subspaces=2, mode="on_disk",
-        min_batch_size_for_quantization=128), device="cpu")
-    n = (1 << 21) + 1  # capacity 2^22
-    w.add_batch(np.arange(n), np.zeros((n, 4), np.float32))
-    with pytest.raises(NotImplementedError, match="quantized build"):
+def test_quantized_build_flush_raises(tmp_path, monkeypatch, corpus):
+    """The quantized build's flush (gate lowered to this size) charges the
+    breaker its decoded-bf16 source beside the codes and the adjacency, no
+    fp32 rows: one byte short of that, the flush raises and keeps its
+    buffer; with it, the flush builds from the bf16 rows."""
+    cfg = tconfig.DiskAnnConfig(**CFG)
+    w = IndexWriter(tmp_path, cfg, device="cpu")
+    w.quantized_build_min_capacity = 512
+    n = 500  # capacity 512
+    w.add_batch(np.arange(n), corpus[0][:n])
+    est = BREAKER.estimate_segment_bytes(
+        n, D, cfg.m, cfg.neighbor_overflow, cfg.num_pq_subspaces,
+        keep_fp32=False) + n * D * 2
+    budget = int(1e9 * GLOBAL_SETTINGS.get(
+        "knn.memory.circuit_breaker.limit") / 100.0)
+    in_use = [budget - est + 1]
+    monkeypatch.setattr(BREAKER, "device_memory",
+                        lambda dev: (int(1e9), in_use[0]))
+    with pytest.raises(CircuitBreakerException):
         w.flush()
     assert w._buffered == n
+    sources = []
+    real = tbuilder.GraphIndexBuilder.build
+    monkeypatch.setattr(tbuilder.GraphIndexBuilder, "build",
+                        lambda self, v, *a, **kw: sources.append(v.dtype)
+                        or real(self, v, *a, **kw))
+    in_use[0] -= 1
+    assert w.flush() is not None and w._buffered == 0
+    assert sources == [torch.bfloat16]

@@ -15,8 +15,8 @@ and get the same request sequence.
     same-key requests and runs the excluded shapes alone, HTTP/1.1
     keep-alive (a body a route does not read is drained, not taken for
     the next request), 8 threads of mixed requests give the serial answers,
-    `number_of_shards` > 1 is refused, and a CUDA service without a card
-    raises.
+    a `number_of_shards` that is not a positive integer is refused, and a
+    CUDA service without a card raises.
 """
 
 import http.client
@@ -462,11 +462,22 @@ def test_eight_threads_of_mixed_requests_give_the_serial_answers(port_svc,
 
 
 def test_more_than_one_shard_is_refused(port_svc):
+    """More than one shard is served now (tests/test_torch_sharded.py);
+    what is refused is a shard count that is not a positive integer, and
+    the refused index does not exist."""
+    for bad in (0, "two"):
+        st, body = _req(port_svc, "PUT", "/sharded", {
+            "settings": {"index": {"number_of_shards": bad}},
+            "mappings": MAPPING})
+        assert st == 400 and "number_of_shards" in body["error"]
+        assert _req(port_svc, "GET", "/sharded")[0] == 404
     st, body = _req(port_svc, "PUT", "/sharded", {
         "settings": {"index": {"number_of_shards": 2}},
         "mappings": MAPPING})
-    assert st == 400 and "Sharded search" in body["error"]
-    assert _req(port_svc, "GET", "/sharded")[0] == 404
+    assert st == 200 and body["shards"] == 2
+    st, body = _req(port_svc, "GET", "/sharded")
+    assert body["sharded"]["settings"]["index"]["number_of_shards"] == 2
+    assert _req(port_svc, "DELETE", "/sharded")[0] == 200
 
 
 def test_cuda_service_without_a_card_raises(tmp_path):
