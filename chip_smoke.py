@@ -132,6 +132,20 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      ef_search where it reaches the target, else at BEAM_EF; a reopen gives
      the same top-10. Reported: vec/s by stage, peak device memory against
      the decoded bf16 + adjacency + codes the segment holds.
+ 13. the graph build profile (last): GraphIndexBuilder(dim=128,
+     max_degree=32, beam_width=100), DiskAnnConfig(dim=128)'s build, over
+     phase 4's first 250,000 rows on the card, once as it runs and once
+     with models/builder.py's BUILD_PROFILE on; then add_nodes of the next
+     50,000 rows into the profiled graph with the profile on (a merge's
+     delta inserts). Printed for each: the wall, rounds, nodes inserted,
+     seconds and share of the wall by phase, the phases' sum against the
+     wall, and the unprofiled wall beside the profiled one. Held:
+     nodes_inserted equals the rows given, rounds the ramp's count, the
+     phases' sum 0.85-1.0 of the profiled wall, recall@10 of the profiled
+     250,000-row graph (beam search, exact provider, ef_search 100, 2,048
+     of phase 4's queries) within 0.01 of the unprofiled one's, and the
+     300,000-node graph at the recall target; ground truth from
+     ground_truth_topk_stream over 2^16-row host blocks.
 The in_memory corpus is the latent-16 "sift-like" generator of bench.py
 (make_data), the GIST-shaped one the latent-32 960-d generator of
 bench.py's gist section, both made with numpy from --seed. The last two
@@ -215,6 +229,13 @@ CHURN, CHURN_DELETES = 50_000, 10_000
 # every device array of the segment) is the same 2^22, the build about half;
 # then a 2^18 scan-tier flush, where the tight breaker launches decode_scan
 QB_N, QB_SCAN_N, QB_BATCH = 2_200_000, 200_000, 8192
+# phase 13: DiskAnnConfig(dim=128)'s graph build over phase 4's first
+# PROF_N rows, then a delta insert of PROF_ADD more; recall on PROF_Q
+# queries against ground truth streamed in PROF_BLOCK-row blocks
+PROF_N, PROF_ADD, PROF_Q, PROF_BLOCK = 250_000, 50_000, 2048, 1 << 16
+PROF_DEGREE, PROF_BEAM = 32, 100
+# phase 4's flush rate before this phase existed (PERF.md §5)
+EARLIER_FLUSH_VEC_S = 25_000
 ON_DISK_SPANS = ("approximate", "rerank_gather", "rerank_score")
 # H100 SXM peaks (NVIDIA data sheet, 700 W): the kernels' bounds
 PEAK_BYTES_S = 3.35e12
@@ -660,7 +681,7 @@ def phase_9a(seed: int, n_queries: int, launches: dict) -> None:
     vectors, queries, _ = make_data(rng, n, n_queries, DIM)
     cfg = DiskAnnConfig(dim=DIM, quantization_type="nvq+pq")
     sc, deep = SearchConfig(k=K), SearchConfig(k=K, ef_search=BEAM_EF)
-    log(f"[9a/12] NVQ (nvq+pq, {cfg.nvq_num_subvectors} subvectors): {n} x "
+    log(f"[9a/13] NVQ (nvq+pq, {cfg.nvq_num_subvectors} subvectors): {n} x "
         f"{DIM} in flushes of {NVQ_FLUSHES}, {n_queries} queries, k={K}")
     # NVQ alone on one flush's rows
     block = torch.as_tensor(vectors[: NVQ_FLUSHES[0]], device="cuda")
@@ -786,7 +807,7 @@ def phase_9b(seed: int, launches: dict) -> None:
     rows_dev = torch.as_tensor(vectors, device="cuda")
     gt = ground_truth_topk(torch.as_tensor(queries, device="cuda"), rows_dev,
                            K, SimilarityFunction.EUCLIDEAN)
-    log(f"[9b/12] scalar quantization {SCALAR_MODES}: {SCALAR_N} x {DIM} in "
+    log(f"[9b/13] scalar quantization {SCALAR_MODES}: {SCALAR_N} x {DIM} in "
         f"one flush each, {VAMANA_QUERIES} queries, k={K}, overquery "
         f"{SCALAR_OVERQUERY}")
     adc_scan.launches = decode_scan.launches = 0
@@ -868,7 +889,7 @@ def phase_9c(seed: int, launches: dict, plain_pq_ms: int) -> None:
     cfg = DiskAnnConfig(dim=DIM, similarity=dot, hierarchy_enabled=True,
                         pq_anisotropic_threshold=ANISO_THRESHOLD)
     sc, deep = SearchConfig(k=K), SearchConfig(k=K, ef_search=BEAM_EF)
-    log(f"[9c/12] anisotropic PQ (threshold {ANISO_THRESHOLD}) + hierarchy, "
+    log(f"[9c/13] anisotropic PQ (threshold {ANISO_THRESHOLD}) + hierarchy, "
         f"inner product over unit-norm rows: {n} x {DIM} in flushes of "
         f"{ANISO_FLUSHES}, {VAMANA_QUERIES} queries, k={K}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_aniso_") as root:
@@ -1027,7 +1048,7 @@ def phase_10(root: str, vectors, queries, mem_ids, mem_scores, truth, basis,
 
     n, nq = vectors.shape[0], queries.shape[0]
     n_seg = FLUSHES
-    log(f"[10/12] serving over REST: KnnService(device=\"cuda\") attaches "
+    log(f"[10/13] serving over REST: KnnService(device=\"cuda\") attaches "
         f"phase 4's {n} x {DIM} index as /sift ({n_seg} segments); {smi}")
     gc.collect()
     torch.cuda.empty_cache()
@@ -1374,7 +1395,7 @@ def phase_6b(n_queries: int) -> float:
     truth = ground_truth_topk(qd, vd, K, cos)
     recall = recall_at_k(ids, truth, K)
     gap = recall - GIST_PARITY_REF
-    log(f"[6b/12] GIST parity: bench.py's gist cell ({gn} x {gdim}, cosine, "
+    log(f"[6b/13] GIST parity: bench.py's gist cell ({gn} x {gdim}, cosine, "
         f"latent {glat}, seed 41, PQ{GIST_M}, {n_queries} queries: decoded "
         f"bf16 scan, top-{K * 5}, exact rerank) on the port: PQ train + "
         f"encode + decode {build_s:.1f} s, recall@{K} {recall:.4f}; "
@@ -1413,7 +1434,7 @@ def phase_11(vectors, queries, basis, vv, vq, seed: int, smi: str,
     restack = (Counter.KNN_MESH_RESTACK_COUNT.value,
                Counter.KNN_MESH_RESTACK_PARTIAL_COUNT.value,
                Counter.KNN_MESH_RESTACK_TIME.value)
-    log(f"[11/12] sharded: phase 4's {n} x {DIM} rows in {s_n} shards (doc id "
+    log(f"[11/13] sharded: phase 4's {n} x {DIM} rows in {s_n} shards (doc id "
         f"mod {s_n}), {nq} queries in batches of {BATCH}, k={K}; {smi}")
     gc.collect()
     torch.cuda.empty_cache()
@@ -1652,7 +1673,7 @@ def phase_12(seed: int, smi: str, launches: dict) -> None:
     rng = np.random.default_rng(seed + 12)
     t0 = time.monotonic()
     rows, queries, _ = make_data(rng, n + n_scan, nq, DIM)
-    log(f"[12/12] quantized build: {n} x {DIM} rows (capacity 2^22) in one "
+    log(f"[12/13] quantized build: {n} x {DIM} rows (capacity 2^22) in one "
         f"on_disk flush from rows on the card (flush(device_rows=...)), "
         f"m={cfg.m}, PQ{cfg.num_pq_subspaces}, build_batch_size "
         f"{QB_BATCH}; then {n_scan} rows (scan tier); {nq} queries, k={K} "
@@ -1760,6 +1781,130 @@ def phase_12(seed: int, smi: str, launches: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def ramp_rounds(n: int, batch: int, max_degree: int) -> int:
+    """Insert rounds of a build of n rows: after a bootstrap block of
+    min(n, max(max_degree + 1, min(1024, batch))) rows, each round as wide
+    as the graph so far (at least 64, at most batch)."""
+    pos = min(n, max(max_degree + 1, min(1024, batch)))
+    rounds = 0
+    while pos < n:
+        pos += min(batch, max(pos, 64))
+        rounds += 1
+    return rounds
+
+
+def phase_13(rows: np.ndarray, queries: np.ndarray, basis, seed: int,
+             smi: str) -> None:
+    """The graph build profile: see the module docstring."""
+    from opensearch_jvector_tpu_torch.models import builder as builder_mod
+    from opensearch_jvector_tpu_torch.models import searcher as searcher_mod
+    from opensearch_jvector_tpu_torch.models.graph import bucket_capacity
+    from opensearch_jvector_tpu_torch.ops.distances import SimilarityFunction
+    from opensearch_jvector_tpu_torch.utils.ground_truth import (
+        ground_truth_topk,
+        ground_truth_topk_stream,
+        recall_at_k,
+    )
+
+    t_phase = time.monotonic()
+    n, n_all = PROF_N, PROF_N + PROF_ADD
+    if rows.shape[0] < n_all:  # a run with --n below n_all
+        rows = np.concatenate([rows, more_rows(
+            np.random.default_rng(seed + 13), basis, n_all - rows.shape[0])])
+    simf = SimilarityFunction.EUCLIDEAN
+    log(f"[13/13] graph build profile: GraphIndexBuilder(dim={DIM}, "
+        f"max_degree={PROF_DEGREE}, beam_width={PROF_BEAM}) over {n} of "
+        f"phase 4's rows on the card, unprofiled and profiled, then "
+        f"add_nodes of {PROF_ADD} more, profiled; recall@{K} on "
+        f"{queries.shape[0]} queries at ef_search 100; {smi}")
+    x = torch.as_tensor(rows, device="cuda")
+    q = torch.as_tensor(queries, device="cuda")
+    t0 = time.monotonic()
+
+    def blocks(m):
+        for lo in range(0, m, PROF_BLOCK):
+            yield lo, rows[lo: min(lo + PROF_BLOCK, m)]
+
+    truth = {m: ground_truth_topk_stream(q, blocks(m), K, simf)
+             for m in (n, n_all)}
+    agree = recall_at_k(ground_truth_topk(q, x[:n], K, simf), truth[n], K)
+    log(f"  ground truth streamed in {PROF_BLOCK}-row blocks over {n} and "
+        f"{n_all} rows: {time.monotonic() - t0:.2f} s; agreement with "
+        f"ground_truth_topk over the {n} rows on the card {agree:.6f}")
+    if agree < 0.999:
+        raise AssertionError(f"the streamed ground truth disagrees: {agree}")
+    params = searcher_mod.SearchParams(k=K, ef_search=100)
+
+    def recall(graph):
+        res = searcher_mod.search(graph.adjacency, graph.live, graph.entry,
+                                  q, params, simf, vectors=x)
+        return recall_at_k(res.ids.cpu().numpy(), truth[graph.size()], K)
+
+    def report(what, b, wall, given, want_rounds):
+        c = b.counters
+        total = sum(c.phase_s.values())
+        log(f"  {what}: wall {wall:.3f} s = {given / wall:.0f} vec/s, "
+            f"rounds {c.rounds} (ramp {want_rounds}), nodes_inserted "
+            f"{c.nodes_inserted}")
+        if c.phase_s:
+            log("    " + "; ".join(
+                f"{k} {v:.3f} s ({100 * v / wall:.1f} %)"
+                for k, v in sorted(c.phase_s.items(), key=lambda kv: -kv[1])))
+            log(f"    sum of phases {total:.3f} s = {total / wall:.3f} of "
+                f"the wall")
+        if c.nodes_inserted != given or c.rounds != want_rounds:
+            raise AssertionError(f"{what}: counters {c} against {given} "
+                                 f"rows and {want_rounds} rounds")
+        if c.phase_s and not 0.85 <= total / wall <= 1.0:
+            raise AssertionError(f"{what}: phases sum to {total / wall:.3f} "
+                                 f"of the wall")
+
+    cap = bucket_capacity(n_all)
+    graphs, walls = {}, {}
+    try:
+        for profile in (False, True):
+            builder_mod.BUILD_PROFILE = profile
+            b = builder_mod.GraphIndexBuilder(
+                dim=DIM, max_degree=PROF_DEGREE, beam_width=PROF_BEAM)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            graphs[profile] = b.build(x[:n], simf, capacity=cap)
+            torch.cuda.synchronize()
+            walls[profile] = time.monotonic() - t0
+            report(f"build of {n} rows, profile {'on' if profile else 'off'}",
+                   b, walls[profile], n,
+                   ramp_rounds(n, b.batch_size, PROF_DEGREE))
+        b = builder_mod.GraphIndexBuilder(
+            dim=DIM, max_degree=PROF_DEGREE, beam_width=PROF_BEAM)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        merged = b.add_nodes(graphs[True], x, np.arange(n, n_all), simf)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        report(f"add_nodes of {PROF_ADD} rows, profile on", b, wall,
+               PROF_ADD, -(-PROF_ADD // b.batch_size))
+    finally:
+        builder_mod.BUILD_PROFILE = False
+    log(f"  the profile's cost: unprofiled wall {walls[False]:.3f} s, "
+        f"profiled {walls[True]:.3f} s "
+        f"({walls[True] / walls[False]:.3f}x); identical adjacency "
+        f"{bool(torch.equal(graphs[False].adjacency, graphs[True].adjacency))}")
+    r_off, r_on, r_all = (recall(g) for g in (graphs[False], graphs[True],
+                                              merged))
+    log(f"  recall@{K} at ef_search 100: {n} rows unprofiled {r_off:.4f}, "
+        f"profiled {r_on:.4f}; {n_all} nodes after add_nodes {r_all:.4f}")
+    if abs(r_on - r_off) > 0.01:
+        raise AssertionError(f"the profiled build's recall {r_on} is not "
+                             f"within 0.01 of {r_off}")
+    if r_all < RECALL_TARGET:
+        raise AssertionError(f"recall@{K} after add_nodes {r_all} < "
+                             f"{RECALL_TARGET}")
+    del x, graphs, merged
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 13: {time.monotonic() - t_phase:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -1804,7 +1949,7 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    log(f"[1/12] device: {kind} (torch {torch.__version__}, "
+    log(f"[1/13] device: {kind} (torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} visible)")
     log(smi)
 
@@ -1813,7 +1958,7 @@ def main() -> int:
     names = ("adc_scan", "decode_scan", "vector_store")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(_kernels.build, names)))
-    log(f"[2/12] build: {', '.join(p.name for p in libs.values())} in "
+    log(f"[2/13] build: {', '.join(p.name for p in libs.values())} in "
         f"{time.monotonic() - t0:.1f} s (compilers started together)")
     for name in names:
         if name not in _kernels.BUILD_LOGS:
@@ -1823,7 +1968,7 @@ def main() -> int:
     log(f"  sass: {hmma_count(libs['decode_scan'])}")
 
     # ---- 3. kernels vs plain ----------------------------------------------
-    log("[3/12] kernels vs plain PyTorch on the card")
+    log("[3/13] kernels vs plain PyTorch on the card")
     m = default_num_subspaces(DIM)  # the subspaces the flushes train
     adc_rec = check_adc_scan(BATCH, m, 256, 1 << 18, args.seed, reps=20,
                              plain_reps=3, library=True, fused=True)
@@ -1857,7 +2002,7 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     vectors, queries, basis = make_data(rng, args.n, args.queries, DIM)
     sc = SearchConfig(k=K)
-    log(f"[4/12] in_memory path: {args.n} x {DIM} in {FLUSHES} flushes, "
+    log(f"[4/13] in_memory path: {args.n} x {DIM} in {FLUSHES} flushes, "
         f"{args.queries} queries in batches of {BATCH}, k={K}")
     torch.cuda.reset_peak_memory_stats()
     launches = {}
@@ -1882,7 +2027,8 @@ def main() -> int:
             Counter.KNN_GRAPH_BUILD_TIME))
         log(f"  flush {name}: {hi - lo} vectors in {dt:.2f} s = "
             f"{(hi - lo) / dt:.0f} vec/s (PQ train+encode {pq_ms} ms, "
-            f"graph build {build_ms} ms)")
+            f"graph build {build_ms} ms; PERF.md records ~"
+            f"{EARLIER_FLUSH_VEC_S} vec/s)")
         plain_pq_ms = pq_ms if plain_pq_ms is None else plain_pq_ms
 
     index.search(queries[: BATCH], sc)  # warm: segment loads
@@ -1913,7 +2059,7 @@ def main() -> int:
     reopened = VectorIndex(root, device="cuda")
     again = reopened.search(queries[: BATCH], sc).doc_ids
     same = bool((again == ids[: BATCH]).all())
-    log(f"[5/12] reopen from commits.json: {len(reopened.segment_names)} "
+    log(f"[5/13] reopen from commits.json: {len(reopened.segment_names)} "
         f"segments, identical top-{K} ids for {BATCH} "
         f"queries: {same}")
     if not same:
@@ -1939,7 +2085,7 @@ def main() -> int:
         grng = np.random.default_rng(args.seed + 41)
         t0 = time.monotonic()
         gv, gq = make_gist(grng, GIST_N, args.queries)
-        log(f"[6/12] on_disk flat GIST1M-shaped: {GIST_N} x {GIST_DIM}, "
+        log(f"[6/13] on_disk flat GIST1M-shaped: {GIST_N} x {GIST_DIM}, "
             f"PQ{GIST_M}, {args.queries} queries in batches of {BATCH}, "
             f"k={K} (data made in {time.monotonic() - t0:.1f} s)")
         gt = ground_truth_topk(torch.as_tensor(gq, device="cuda"),
@@ -2073,7 +2219,7 @@ def main() -> int:
     vrng = np.random.default_rng(args.seed + 7)
     n_v = sum(VAMANA_FLUSHES)
     vv, vq, _ = make_data(vrng, n_v, VAMANA_QUERIES, DIM)
-    log(f"[7/12] on_disk vamana: {n_v} x {DIM} in flushes of "
+    log(f"[7/13] on_disk vamana: {n_v} x {DIM} in flushes of "
         f"{VAMANA_FLUSHES}, {VAMANA_QUERIES} queries, k={K}")
     gt = ground_truth_topk(torch.as_tensor(vq, device="cuda"),
                            torch.as_tensor(vv, device="cuda"), K,
@@ -2148,7 +2294,7 @@ def main() -> int:
     n_del, n_add = n // DELETE_SHARE, n // ADD_SHARE
     n_upd = n_add // UPDATE_SHARE
     n_new = n_add - n_upd
-    log(f"[8a/12] in_memory deletes and merges on phase 4's index directory: "
+    log(f"[8a/13] in_memory deletes and merges on phase 4's index directory: "
         f"delete {n_del}, then add {n_new} new docs and {n_upd} updates")
     # the default merge policy: tiered, at most 4 segments, 4 a merge
     index = VectorIndex(sift_dir, device="cuda")
@@ -2329,7 +2475,7 @@ def main() -> int:
     doomed = np.random.default_rng(args.seed + 9).choice(
         n_v, n_v // DELETE_SHARE, replace=False)
     keep = np.setdiff1d(np.arange(n_v), doomed)
-    log(f"[8b/12] on_disk vamana deletes and force_merge: delete "
+    log(f"[8b/13] on_disk vamana deletes and force_merge: delete "
         f"{doomed.size} of {n_v} docs")
     truth = live_truth(vq, vv, keep, K)
     root = vamana_dir.name
@@ -2404,6 +2550,10 @@ def main() -> int:
 
     # ---- 11. sharded search on phase 4's and phase 7's corpora -----------
     phase_11(vectors, queries, basis, vv, vq, args.seed, smi, launches)
+    # phase 13 builds over phase 4's first rows and queries, after the
+    # corpus has gone
+    prof_rows = np.array(vectors[:PROF_N + PROF_ADD])
+    prof_queries = np.array(queries[:PROF_Q])
     del vectors, queries, vv, vq
     gc.collect()
     torch.cuda.empty_cache()
@@ -2415,6 +2565,10 @@ def main() -> int:
     phase_9a(args.seed, args.queries, launches)
     phase_9b(args.seed, launches)
     phase_9c(args.seed, launches, plain_pq_ms)
+
+    # ---- 13. the graph build profile ---------------------------------------
+    phase_13(prof_rows, prof_queries, basis, args.seed, smi)
+    del prof_rows, prof_queries
 
     total = {k: sum(v[k] for v in launches.values())
              for k in ("adc_scan", "decode_scan")}

@@ -269,6 +269,12 @@ class SegmentReader:
         return cls(segment_mod.read_segment(path, device, verify=verify),
                    stats)
 
+    @staticmethod
+    def check_integrity(path: str | Path) -> bool:
+        """Every checksum of the segment directory `path` holds
+        (`segment.check_integrity`)."""
+        return segment_mod.check_integrity(path)
+
     def _scan_bound(self) -> int:
         """`index.knn.advanced.scan_tier_max_codes` when set (>= 0), else
         the class default."""

@@ -27,11 +27,20 @@ the decoded cache is the only corpus on the device, beam scoring reads it
 as it is, and every prune, bootstrap and cleanup site upcasts the rows it
 gathers, never the corpus. With `hierarchy_enabled`, `cleanup` adds the
 coarse upper layer (`_build_upper_layer`).
+
+`GraphIndexBuilder.counters` (`BuildCounters`) counts insert rounds and
+inserted nodes. With `BUILD_PROFILE` on (`JVECTOR_TPU_BUILD_PROFILE=1` at
+import, or the module attribute set), every phase of an insert round and of
+`cleanup` waits for the device at its end and adds its wall-clock seconds
+to `counters.phase_s`. That serialises the pipelined rounds, so it is for
+diagnosis only; with it off, no phase adds a wait or a transfer.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
 
 import numpy as np
 import torch
@@ -59,6 +68,18 @@ SPLICE_GATHER_BYTES = 1 << 30
 # construction default) and the default seed of the insert order.
 CONSTRUCTION_EXPANSIONS = 8
 BUILD_SEED = 42
+
+BUILD_PROFILE = os.environ.get("JVECTOR_TPU_BUILD_PROFILE", "0") == "1"
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for the work queued on `device` (the profile's phase edges)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _phase_start() -> float:
+    return time.perf_counter() if BUILD_PROFILE else 0.0
 
 
 def _build_rows(vectors: torch.Tensor) -> torch.Tensor:
@@ -205,6 +226,22 @@ class _DeviceAdj:
             src, dtype=torch.int32, device=dev)
 
 
+@dataclasses.dataclass
+class BuildCounters:
+    """Insert rounds and inserted nodes over a GraphIndexBuilder's life,
+    and under BUILD_PROFILE the seconds by phase. Nothing counts
+    `nodes_deleted` (tombstones are folded in by `cleanup`, as in the
+    reference)."""
+
+    rounds: int = 0
+    nodes_inserted: int = 0
+    nodes_deleted: int = 0
+    phase_s: dict = dataclasses.field(default_factory=dict)
+
+    def _phase(self, name: str, dt: float) -> None:
+        self.phase_s[name] = self.phase_s.get(name, 0.0) + dt
+
+
 class GraphIndexBuilder:
     """Bulk-synchronous Vamana builder (fp32 rows).
 
@@ -249,7 +286,19 @@ class GraphIndexBuilder:
         # width; back-edges beyond it in one round are dropped (cleanup
         # repairs any orphan)
         self.extra_width = min(2 * self.max_degree, 32)
+        self.counters = BuildCounters()
         self._has_tombstones = False
+
+    def _phase_end(self, name: str, t0: float, device) -> float:
+        """Under BUILD_PROFILE: wait for `device`, add the seconds since
+        `t0` to phase `name` and return the next phase's start. Nothing
+        (no wait) when the profile is off."""
+        if not BUILD_PROFILE:
+            return 0.0
+        _sync(device)
+        t = time.perf_counter()
+        self.counters._phase(name, t - t0)
+        return t
 
     # -- scoring helpers ---------------------------------------------------
 
@@ -365,10 +414,12 @@ class GraphIndexBuilder:
         candidates, prune, forward rows + live mark. Returns the pending
         state for `_round_finish`."""
         dev = st.adj.device
+        t0 = _phase_start()
         batch_t = torch.as_tensor(batch, device=dev)
         queries = vectors[batch_t].float()
         cand_ids, cand_scores = self._search_candidates(
             st.adj, live_dev, entry, vectors, queries, simf, pq)
+        t0 = self._phase_end("search", t0, dev)
         b = batch.size
         top_r = min(b - 1, self.max_degree) if b > 1 else 0
         if top_r > 0:
@@ -384,21 +435,28 @@ class GraphIndexBuilder:
             self.alpha, self.max_degree, simf, point_ids=batch_t)
         st.write_rows(batch_t, sel)
         live_dev[batch_t] = True
+        self._phase_end("prune+fwd", t0, dev)
         return batch, sel
 
     def _round_finish(self, st: _DeviceAdj, pending, vectors, simf):
         """Host half of an insert round: fetch the prune output, compute
         reverse-edge slots, apply them, run overflow prunes."""
         new_ids, sel_dev = pending
-        ids_t = torch.as_tensor(new_ids, device=sel_dev.device)
+        dev = sel_dev.device
+        t0 = _phase_start()
+        ids_t = torch.as_tensor(new_ids, device=dev)
         both = torch.stack([sel_dev,
                             self._edge_present(st, ids_t, sel_dev).long()])
         sel, present = both.cpu().numpy()  # one transfer
+        t0 = self._phase_end("sel_fetch", t0, dev)
         st.deg[new_ids] = (sel >= 0).sum(axis=1)
         dst, slot, src, overflowed, extras = self._compute_back_edges(
             st.deg, new_ids, sel, self.overflow_degree, present.astype(bool))
+        t0 = self._phase_end("backedges_host", t0, dev)
         st.write_edges(dst, slot, src)
+        t0 = self._phase_end("apply", t0, dev)
         self._prune_overflow(st, overflowed, vectors, simf, extras=extras)
+        self._phase_end("overflow", t0, dev)
 
     # -- public API --------------------------------------------------------
 
@@ -474,8 +532,10 @@ class GraphIndexBuilder:
                 self._round_finish(st, pending, vectors, simf)
             pending = nxt
             pos += batch.size
+            self.counters.rounds += 1
         if pending is not None:
             self._round_finish(st, pending, vectors, simf)
+        self.counters.nodes_inserted += n
 
         graph = VamanaGraph(
             adjacency=st.adj,
@@ -570,8 +630,10 @@ class GraphIndexBuilder:
             if pending is not None:
                 self._round_finish(st, pending, vectors, simf)
             pending = nxt
+            self.counters.rounds += 1
         if pending is not None:
             self._round_finish(st, pending, vectors, simf)
+        self.counters.nodes_inserted += new_ids.size
         return dataclasses.replace(
             graph, adjacency=st.adj,
             degrees=torch.as_tensor(st.deg, device=dev), live=live_dev)
@@ -612,6 +674,7 @@ class GraphIndexBuilder:
         re-pruned to max_degree, a dead entry is replaced, and unreachable
         live nodes are linked in. The adjacency is updated in place."""
         dev = graph.adjacency.device
+        t0 = _phase_start()
         st = _DeviceAdj(graph.adjacency, graph.degrees.cpu().numpy().copy())
         live = graph.live.cpu().numpy()
         live_dev = graph.live
@@ -621,6 +684,7 @@ class GraphIndexBuilder:
         has_dead = torch.any((adj >= 0) & ~live_dev[adj.clamp(min=0)], dim=1)
         del adj
         dead_nodes = np.nonzero(has_dead.cpu().numpy() & live)[0]
+        t0 = self._phase_end("cleanup_fetch", t0, dev)
         if dead_nodes.size:
             width = st.cap_deg * (st.cap_deg + 1)
             chunk = max(64, min(self.batch_size, SPLICE_GATHER_BYTES
@@ -630,6 +694,7 @@ class GraphIndexBuilder:
                 sel = self._splice_prune(st, torch.as_tensor(ids, device=dev),
                                          live_dev, vectors, simf)
                 st.deg[ids] = (sel >= 0).sum(1).cpu().numpy()
+        t0 = self._phase_end("cleanup_splice", t0, dev)
 
         # rows over the degree bound, and rows that hold a neighbour twice
         # (graphs written by the reference's builder can): the prune keeps
@@ -640,6 +705,7 @@ class GraphIndexBuilder:
         del srt
         over = np.nonzero((st.deg > self.max_degree) | (has_dup & live))[0]
         self._prune_overflow(st, over, vectors, simf)
+        t0 = self._phase_end("cleanup_overflow", t0, dev)
 
         # entry repair: if the entry died, take the live node closest to
         # the mean of the live rows
@@ -660,6 +726,7 @@ class GraphIndexBuilder:
             for _ in range(3):
                 if self._repair_orphans(st, live, vectors, simf, entry) == 0:
                     break
+        self._phase_end("cleanup_orphans", t0, dev)
 
         upper = None
         if self.hierarchy_enabled:

@@ -59,6 +59,15 @@ class VamanaGraph:
     def max_degree(self) -> int:
         return self.adjacency.shape[1]
 
+    def size(self) -> int:
+        """Number of live nodes (host sync)."""
+        return int(self.live.sum())
+
+    def id_upper_bound(self) -> int:
+        """1 + the highest live ordinal, 0 when none is live."""
+        nz = torch.nonzero(self.live)
+        return int(nz[-1, 0]) + 1 if nz.numel() else 0
+
     @staticmethod
     def flat(capacity: int, n_live: int,
              device: torch.device | str) -> "VamanaGraph":

@@ -64,6 +64,24 @@ class ProductQuantization:
     center: torch.Tensor  # [d] f32 (zeros when centering disabled)
     aniso_eta: float | None = None
 
+    @property
+    def num_subspaces(self) -> int:
+        return self.codebooks.shape[0]
+
+    @property
+    def num_clusters(self) -> int:
+        return self.codebooks.shape[1]
+
+    @property
+    def dim(self) -> int:
+        return self.codebooks.shape[0] * self.codebooks.shape[2]
+
+    def compressed_bytes(self) -> int:
+        return self.num_subspaces  # 1 byte a code (K <= 256)
+
+    def original_bytes(self) -> int:
+        return self.dim * 4
+
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:
     return v * torch.rsqrt(torch.sum(v * v, -1, keepdim=True) + 1e-30)
@@ -252,8 +270,14 @@ def encode(pq: ProductQuantization, vectors: torch.Tensor | np.ndarray,
             out[s: s + chunk.shape[0]] = encode(pq, chunk, simf)
         return out
     if simf is SimilarityFunction.COSINE:
-        vectors = _normalize(vectors)
+        return encode_for_cosine(pq, vectors)
     return encode_pq(pq, vectors)
+
+
+def encode_for_cosine(pq: ProductQuantization,
+                      vectors: torch.Tensor) -> torch.Tensor:
+    """Cosine corpora are encoded normalized (ADC then uses plain dots)."""
+    return encode_pq(pq, _normalize(vectors))
 
 
 @dataclasses.dataclass

@@ -68,6 +68,14 @@ class SearchParams:
     threshold: float = 0.0  # similarity cutoff on final results
     rerank_floor: float = 0.0  # approx-score floor to qualify for rerank
 
+    def resolved_iters(self) -> int:
+        """Beam iterations `search` runs at most: `max_iters`, else enough
+        for E expansions an iteration to cover the pool of
+        max(ef_search, k * overquery_factor) (at least 8)."""
+        ef = max(self.ef_search, self.k * self.overquery_factor, self.k)
+        e = self.expansions_per_iter
+        return self.max_iters or max(8, -(-ef // e))
+
 
 @dataclasses.dataclass
 class SearchResult:
@@ -337,7 +345,7 @@ def search(
     r = max(params.k * params.overquery_factor, params.k)
     ef = max(params.ef_search, r)
     e = params.expansions_per_iter
-    iters = params.max_iters or max(8, (ef + e - 1) // e)
+    iters = params.resolved_iters()
 
     upper_expanded = 0
     if upper_adjacency is not None:

@@ -6,6 +6,7 @@ Port of `opensearch_jvector_tpu/ops/adc.py`:
   2. `lookup_scan` — the plain PyTorch version of the fused ADC scan
      (`out[q, n] = sum_m luts[q, m, codes[n, m]]`). The CUDA kernel in
      `ops/adc_kernel.py` computes the same thing and is held against it.
+     `lookup_candidates` does the same over per-query candidate codes.
 
 Raw accumulated value convention (matches the PQ training space):
   EUCLIDEAN:    sum of per-subspace squared distances  -> score 1/(1+sum)
@@ -50,6 +51,14 @@ def lookup_scan(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     for mi in range(m):
         acc += luts[:, mi, :][:, idx[:, mi]]
     return acc
+
+
+def lookup_candidates(luts: torch.Tensor,
+                      codes: torch.Tensor) -> torch.Tensor:
+    """Accumulate ADC values for per-query candidate code rows:
+    luts [Q, M, K], codes [Q, C, M] -> [Q, C] float32."""
+    idx = codes.long().transpose(1, 2)  # [Q, M, C]
+    return torch.gather(luts.float(), 2, idx).sum(1)
 
 
 def adc_value_to_score(values: torch.Tensor,

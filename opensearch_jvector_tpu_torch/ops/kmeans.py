@@ -147,6 +147,15 @@ def lloyd_iters(x_sub: torch.Tensor, centroids: torch.Tensor,
     return centroids
 
 
+def train_kmeans(
+    x: torch.Tensor, k: int, iters: int = 8,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """Train k centroids over x [n, d] -> [k, d] (k-means++ seeding, then
+    Lloyd): one subspace of `train_kmeans_subspaces`."""
+    return train_kmeans_subspaces(x.unsqueeze(0), k, iters, generator)[0]
+
+
 def train_kmeans_subspaces(
     x_sub: torch.Tensor, k: int, iters: int = 8,
     gen: torch.Generator | None = None,

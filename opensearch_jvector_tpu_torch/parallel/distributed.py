@@ -182,6 +182,13 @@ class ShardedVectorIndex:
         s, name = combined.split(self.SEG_SEP, 1)
         return self.shards[int(s)], name
 
+    def deleted_docs_for(self, combined: str) -> frozenset[int]:
+        """One segment's tombstones (`VectorIndex.deleted_docs_for` of its
+        shard). The query layer reads segments and tombstones together
+        through `snapshot` instead."""
+        shard, name = self._split(combined)
+        return shard.deleted_docs_for(name)
+
     def snapshot(self) -> list[tuple[str, frozenset[int]]]:
         """Every shard's segment set with its tombstones (one
         `VectorIndex.snapshot` a shard)."""

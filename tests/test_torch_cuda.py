@@ -710,3 +710,42 @@ def test_quantized_build_and_device_rows_on_card(card, corpus, tmp_path):
         for i in opened:
             i.close()
     assert seen == [torch.bfloat16]
+
+
+def test_build_profile_on_card_matches_cpu(card, monkeypatch):
+    """A profiled build and delta insert count the same rounds, nodes and
+    phases on the card as on the CPU."""
+    from opensearch_jvector_tpu_torch.models import builder as tbuilder
+
+    monkeypatch.setattr(tbuilder, "BUILD_PROFILE", True)
+    rows = _latent(np.random.default_rng(20), 21_000)
+    seen = {}
+    for dev in ("cpu", card):
+        b = tbuilder.GraphIndexBuilder(dim=32, max_degree=16, beam_width=48)
+        x = torch.as_tensor(rows, device=dev)
+        g = b.build(x[:20_000], SimilarityFunction.EUCLIDEAN, capacity=1 << 15)
+        b.add_nodes(g, x, np.arange(20_000, 21_000),
+                    SimilarityFunction.EUCLIDEAN)
+        c = b.counters
+        assert all(v >= 0.0 for v in c.phase_s.values())
+        seen[torch.device(dev).type] = (c.rounds, c.nodes_inserted,
+                                        set(c.phase_s))
+    assert seen["cuda"] == seen["cpu"]
+    assert seen["cuda"][1] == 21_000 and len(seen["cuda"][2]) == 10
+
+
+def test_ground_truth_stream_on_card_equals_the_scan(card):
+    from opensearch_jvector_tpu_torch.utils.ground_truth import (
+        ground_truth_topk_stream,
+    )
+
+    rng = np.random.default_rng(21)
+    v = rng.standard_normal((20_000, 32)).astype(np.float32)
+    q = torch.as_tensor(rng.standard_normal((64, 32)).astype(np.float32),
+                        device=card)
+    for simf in SimilarityFunction:
+        want = ground_truth_topk(q, torch.as_tensor(v, device=card), 10, simf)
+        got = ground_truth_topk_stream(
+            q, ((s, v[s: s + 4096]) for s in range(0, 20_000, 4096)), 10,
+            simf)
+        np.testing.assert_array_equal(got, want)
