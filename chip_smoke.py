@@ -2,14 +2,15 @@
 """Drive the PyTorch port's main paths once on one CUDA card.
 
     python3 chip_smoke.py [--n 1000000] [--queries 10000] [--seed 0]
+                          [--compare-decode-scan OTHER.cu]
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. device: card name, and name + power limit as nvidia-smi reports them;
   2. build: compile the CUDA kernels and the host row store from the
      sources in this checkout, all compilers started together, with
-     ptxas's registers and spills of every kernel and the count of tensor-core
-     (HMMA) instructions in decode_scan_kernel's SASS where cuobjdump is
-     found;
+     ptxas's registers and spills of every kernel and the counts of
+     tensor-core instructions in decode_scan_kernel's SASS where cuobjdump
+     is found: HGMMA (wgmma, which the kernel must hold) and HMMA;
   3. kernels: every kernel against its plain PyTorch version at the main
      paths' shapes (adc_scan also at phase 10's Q=1 and Q=32 over 2^18 x 64
      codes) and at ragged shapes, with the kernel's time, the plain
@@ -17,6 +18,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      bound the card's peak rates set; adc_scan also in its fused mode (score
      map and validity mask in the epilogue) at the in_memory cell, held to
      the plain version and, exactly, to the raw kernel mapped and masked;
+     decode_scan at the GIST cell's Q=512 and at the routing gate's lowest
+     batch, Q=256. With --compare-decode-scan, another decode_scan.cu (an
+     earlier commit's, say) is built with the same flags, held to the same
+     plain version and timed beside this checkout's kernel in turns
+     (other, this, this, other) at both shapes;
   4. in_memory path: VectorIndex(DiskAnnConfig(dim=128)) on "cuda",
      add_batch + flush of --n rows in 4 flushes (4 segments that each take
      the scan tier), batched search at k=10, recall@10 against exact
@@ -161,6 +167,7 @@ import http.client
 import importlib.util
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -241,6 +248,8 @@ ON_DISK_SPANS = ("approximate", "rerank_gather", "rerank_score")
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12  # float32 outside the tensor cores
 PEAK_BF16_S = 989e12  # bf16 tensor cores, dense
+# shared memory: 32 banks, one 4-byte access each a clock, per SM
+SMEM_LOOKUPS_PER_CLOCK = 32
 
 
 def log(msg: str) -> None:
@@ -296,6 +305,18 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def lookup_bound_ms(lookups: float) -> float:
+    """The least time `lookups` shared-memory lookups take on this card:
+    SMs x 32 lookups a clock (one a bank, no conflicts) at the SM's
+    maximum clock as nvidia-smi reports it."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return lookups / (sms * SMEM_LOOKUPS_PER_CLOCK * mhz * 1e6) * 1e3
 
 
 def bound_of(nbytes: float, ops: float, peak_ops: float):
@@ -389,7 +410,9 @@ def check_adc_scan(q, m, k, n, seed, reps, plain_reps, library=False,
         del lib_out
         library_ms = cuda_ms(lambda: torch.nn.functional.embedding_bag(
             idx, table, mode="sum"), reps)
-    log(f"  adc_scan {ms:.4f} ms (bound {bound_ms:.4f} ms, {bound_by})"
+    log(f"  adc_scan {ms:.4f} ms (bound {bound_ms:.4f} ms, {bound_by}; "
+        f"shared-memory lookup bound {lookup_bound_ms(ops):.4f} ms for its "
+        f"Q*N*M = {ops} table lookups)"
         + (f", fused mode {fused_ms:.4f} ms (bound {fused_bound_ms:.4f} ms, "
            f"{fused_bound_by})" if fused else "")
         + f", plain lookup_scan {plain_ms:.4f} ms, library embedding_bag "
@@ -460,27 +483,111 @@ def check_decode_scan(q, n, m, k, dsub, seed, reps, plain_reps,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
+def compare_decode_scan(src: Path, shapes, seed: int) -> None:
+    """Build another decode_scan.cu (`src`) with this checkout's flags into
+    a temporary directory, hold it to the plain version, and time it beside
+    this checkout's kernel in turns (other, this, this, other) at each
+    (Q, N, M, K, dsub) shape."""
+    import ctypes
+
+    from opensearch_jvector_tpu_torch.ops import _kernels
+    from opensearch_jvector_tpu_torch.ops.pq_scan_kernel import (
+        decode_scan,
+        decode_scan_reference,
+        kernel_error_bound,
+    )
+
+    this = _kernels.load("decode_scan")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_other_") as tmp:
+        path = Path(tmp) / "libdecode_scan_other.so"
+        proc = subprocess.run(
+            [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", str(path),
+             str(src)], capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+        for line in _kernels.ptxas_summary(proc.stdout + proc.stderr):
+            log(f"  ptxas other {src.name}: {line}")
+        libs = {"other": ctypes.CDLL(str(path)), "this": this}
+        try:
+            for i, (q, n, m, k, dsub) in enumerate(shapes):
+                gen = torch.Generator(device="cuda").manual_seed(seed + i)
+                q_c = torch.randn((q, m * dsub), generator=gen, device="cuda")
+                codes = torch.randint(0, k, (n, m), generator=gen,
+                                      device="cuda", dtype=torch.uint8)
+                cb = torch.randn((m, k, dsub), generator=gen, device="cuda")
+                ref = decode_scan_reference(q_c, codes, cb)
+                bound = kernel_error_bound(q_c, codes, cb)
+                times = {"other": [], "this": []}
+                for who in ("other", "this", "this", "other"):
+                    _kernels._LIBS["decode_scan"] = libs[who]
+                    err = decode_scan(q_c, codes, cb).sub_(ref).abs_()
+                    bad = int((err > bound).sum())
+                    del err
+                    if bad:
+                        raise AssertionError(
+                            f"decode_scan ({who}) disagrees with its plain "
+                            f"version at Q={q} N={n}: {bad} out of bound")
+                    times[who].append(cuda_ms(
+                        lambda: decode_scan(q_c, codes, cb), 5))
+                log(f"  decode_scan Q={q} N={n} M={m} dsub={dsub}: other "
+                    f"({src.name}) {times['other']} ms, this checkout "
+                    f"{times['this']} ms (in turns: other, this, this, "
+                    f"other)")
+                del ref, bound
+        finally:
+            _kernels._LIBS["decode_scan"] = this
+
+
 def profile_batch(index, queries, sc, expect: str | None = None) -> None:
     """Where one search batch's time goes: device time by kernel and the
-    device's busy share of the batch's wall time (torch.profiler). A
-    kernel named `expect` that is missing from the trace is reported."""
-    from torch.profiler import ProfilerActivity, profile
+    device's busy share of the batch's wall time (torch.profiler). The
+    same batch runs once untraced first, as the schedule's warm-up step:
+    a trace that starts cold can miss the first kernels launched after it
+    starts (the on_disk scan's prep and decode_scan kernels come first in
+    a batch). A trace can still drop a batch's device records (seen once:
+    none kept of a 622 ms batch), so a trace with no device row, or
+    without the kernel named `expect`, is taken again, at most 3 times;
+    each retake and a kernel still missing are reported, with the
+    launches the batch made and every device row the trace kept."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        index.search(queries, sc)
-        torch.cuda.synchronize()
-        wall_us = (time.monotonic() - t0) * 1e6
+    from opensearch_jvector_tpu_torch.ops.adc_kernel import adc_scan
+    from opensearch_jvector_tpu_torch.ops.pq_scan_kernel import decode_scan
+
     # device-only rows (kernels, copies); CPU-side ops and the profiler
     # ranges ("query" and the on_disk stages, which the trace also shows as
     # device annotations) would count their kernels' time twice
     ranges = ("query",) + ON_DISK_SPANS
-    rows = [(e.self_device_time_total, e.key, e.count)
-            for e in prof.key_averages()
-            if e.self_cpu_time_total == 0 and e.key not in ranges]
-    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+    for attempt in range(1, 4):
+        traced = []
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: traced.append(
+                         p.key_averages())) as prof:
+            index.search(queries, sc)
+            torch.cuda.synchronize()
+            prof.step()
+            before = kernel_counts(adc_scan, decode_scan)
+            t0 = time.monotonic()
+            index.search(queries, sc)
+            torch.cuda.synchronize()
+            wall_us = (time.monotonic() - t0) * 1e6
+            prof.step()
+        made = {k: v - before[k]
+                for k, v in kernel_counts(adc_scan, decode_scan).items()}
+        averages = traced[0]
+        rows = [(e.self_device_time_total, e.key, e.count)
+                for e in averages
+                if e.self_cpu_time_total == 0 and e.key not in ranges
+                and not e.key.startswith("ProfilerStep")]
+        rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+        if rows and (expect is None
+                     or any(expect in key for _, key, _ in rows)):
+            break
+        log(f"  trace {attempt} of 3 kept {len(rows)} device rows"
+            + (f" and no {expect}" if expect else "") + f"; the batch's "
+            f"launches {made}")
     busy = sum(r[0] for r in rows)
     log(f"  profile of one {queries.shape[0]}-query batch: wall "
         f"{wall_us / 1000:.3f} ms, device busy {busy / 1000:.3f} ms "
@@ -489,11 +596,12 @@ def profile_batch(index, queries, sc, expect: str | None = None) -> None:
         log(f"    {us / 1000:9.3f} ms  x{count:<4d} {key[:90]}")
     if expect and not any(expect in key for _, key, _ in rows):
         log(f"  {expect} is missing from the trace: device busy is "
-            f"understated")
+            f"understated; the batch's launches {made}; device rows "
+            + "; ".join(f"{key[:60]} x{count}" for _, key, count in rows))
     # the on_disk search's stages (profiler ranges in index/reader.py), on
     # the host's clock
     spans = {}
-    for e in prof.key_averages():
+    for e in averages:
         if e.key in ON_DISK_SPANS:  # the host range, not its device twin
             spans[e.key] = max(spans.get(e.key, 0), e.cpu_time_total)
     if spans:
@@ -543,26 +651,31 @@ def cuobjdump() -> str | None:
     return next((str(p) for p in places if p.is_file()), None)
 
 
-def hmma_count(lib: Path) -> str:
-    """How many tensor-core (HMMA) instructions the SASS of
-    decode_scan_kernel in `lib` holds, as a line to print; never raises."""
+def mma_counts(lib: Path) -> tuple[str, int | None]:
+    """How many tensor-core instructions the SASS of decode_scan_kernel in
+    `lib` holds, HGMMA (wgmma) and HMMA (mma.sync), as a line to print and
+    the HGMMA count (None when cuobjdump is missing or fails); never
+    raises."""
     tool = cuobjdump()
     if tool is None:
-        return "cuobjdump not available"
+        return "cuobjdump not available", None
     try:
         proc = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                               text=True, timeout=120, check=False)
     except (OSError, subprocess.SubprocessError) as e:
-        return f"cuobjdump failed: {e}"
+        return f"cuobjdump failed: {e}", None
     if proc.returncode != 0:
-        return f"cuobjdump failed (exit {proc.returncode})"
-    count, inside = 0, False
+        return f"cuobjdump failed (exit {proc.returncode})", None
+    counts, inside = {"HGMMA": 0, "HMMA": 0}, False
     for line in proc.stdout.splitlines():
         if "Function :" in line:
             inside = "decode_scan_kernel" in line
-        elif inside and "HMMA" in line:
-            count += 1
-    return f"{count} HMMA instructions in decode_scan_kernel ({tool})"
+        elif inside:
+            for op in counts:
+                if re.search(rf"\b{op}\.", line):
+                    counts[op] += 1
+    return (f"{counts['HGMMA']} HGMMA and {counts['HMMA']} HMMA "
+            f"instructions in decode_scan_kernel ({tool})", counts["HGMMA"])
 
 
 def kernel_counts(*kernels) -> dict:
@@ -1910,6 +2023,9 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--queries", type=int, default=10_000)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--compare-decode-scan", type=Path, default=None,
+                    metavar="OTHER.cu",
+                    help="time another decode_scan.cu beside this one")
     args = ap.parse_args()
 
     # ---- 1. device -------------------------------------------------------
@@ -1965,7 +2081,11 @@ def main() -> int:
             log(f"  {name}: built before this run, no compiler report")
         for line in _kernels.ptxas_summary(_kernels.BUILD_LOGS.get(name, "")):
             log(f"  ptxas {name}: {line}")
-    log(f"  sass: {hmma_count(libs['decode_scan'])}")
+    line, hgmma = mma_counts(libs["decode_scan"])
+    log(f"  sass: {line}")
+    if hgmma == 0:
+        raise AssertionError("decode_scan_kernel's SASS holds no HGMMA: its "
+                             "products do not run on wgmma")
 
     # ---- 3. kernels vs plain ----------------------------------------------
     log("[3/13] kernels vs plain PyTorch on the card")
@@ -1992,10 +2112,24 @@ def main() -> int:
     dec_rec = check_decode_scan(BATCH, 1 << 20, GIST_M, 256, dsub,
                                 args.seed + 2, reps=5, plain_reps=2,
                                 library=True)
+    # the routing gate's lowest batch (FUSED_DECODE_MIN_QUERIES)
+    gate_rec = check_decode_scan(256, 1 << 20, GIST_M, 256, dsub,
+                                 args.seed + 7, reps=5, plain_reps=2,
+                                 library=True)
+    log(f"  decode_scan at the GIST cell: Q={BATCH} {dec_rec['ms']:.4f} ms "
+        f"(bound {dec_rec['bound_ms']:.4f}, library "
+        f"{dec_rec['library_ms']:.4f}), Q=256 {gate_rec['ms']:.4f} ms "
+        f"(bound {gate_rec['bound_ms']:.4f}, library "
+        f"{gate_rec['library_ms']:.4f})")
     for i, shape in enumerate([(3, 1000, 8, 64, 21), (1, 777, GIST_M, 256,
                                                       dsub),
                                (BATCH, 1 << 18, m, 256, DIM // m)]):
         check_decode_scan(*shape, args.seed + 3 + i, reps=5, plain_reps=2)
+    if args.compare_decode_scan is not None:
+        compare_decode_scan(args.compare_decode_scan,
+                            [(BATCH, 1 << 20, GIST_M, 256, dsub),
+                             (256, 1 << 20, GIST_M, 256, dsub)],
+                            args.seed + 8)
     torch.cuda.empty_cache()
 
     # ---- 4. in_memory path ---------------------------------------------------

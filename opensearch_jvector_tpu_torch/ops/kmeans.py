@@ -15,6 +15,12 @@ orthogonal error, so the loss weights it by eta > 1:
 Assignment uses this loss; the centroid update solves the per-cluster
 normal equations  [N I + (eta-1) S] c = sum x + (eta-1) sum v (v.x),
 S = sum v v^T  (dsub x dsub, one batched solve).
+
+Cluster sums are the reference's one-hot product (`_cluster_sums`): a
+float32 batched matmul, which gives the same bits on every run on one
+device. A `scatter_add_` would be atomic adds on CUDA, whose order (and
+so last bits) changes from run to run. The product runs in full float32:
+the package turns TF32 off when it is imported (`__init__.py`).
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ import torch
 
 from opensearch_jvector_tpu_torch.ops.distances import pairwise_sqdist
 
-# Bounds the [m_chunk, n, k] distance slab of a Lloyd step (~1 GiB f32).
+# Bounds the [m_chunk, n, k] distance slab and one-hot of a Lloyd step,
+# and the anisotropic step's outer products (~1 GiB f32).
 LLOYD_SLAB_BYTES = 1 << 30
 
 
@@ -51,19 +58,31 @@ def _kmeanspp_init(x: torch.Tensor, k: int,
     return centroids
 
 
+def _one_hot(assign: torch.Tensor, k: int) -> torch.Tensor:
+    """[M, n] cluster ids -> [M, k, n] float32 membership (transposed, so
+    that a cluster sum is one batched matmul). Each entry is written
+    once, so the scatter has no order to vary."""
+    msub, n = assign.shape
+    out = torch.zeros((msub, k, n), dtype=torch.float32, device=assign.device)
+    return out.scatter_(1, assign.unsqueeze(1), 1.0)
+
+
+def _cluster_sums(onehot_t: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Per-cluster sums of `rows` [M, n, c] -> [M, k, c], as the
+    reference's one-hot product: deterministic on the card."""
+    return torch.bmm(onehot_t, rows.float())
+
+
 def _lloyd_iter(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     """One Lloyd step per subspace: [M, n, d], [M, k, d] -> [M, k, d].
 
     Assign each point to its nearest centroid, recompute means; empty
     clusters keep their previous centroid."""
-    msub, _, d = x.shape
     k = centroids.shape[1]
     assign = torch.argmin(pairwise_sqdist(x, centroids), dim=2)  # [M, n]
-    sums = torch.zeros((msub, k, d), dtype=torch.float32, device=x.device)
-    sums.scatter_add_(1, assign.unsqueeze(-1).expand(-1, -1, d),
-                      x.float())
-    counts = torch.zeros((msub, k), dtype=torch.float32, device=x.device)
-    counts.scatter_add_(1, assign, torch.ones_like(assign, dtype=torch.float32))
+    onehot_t = _one_hot(assign, k)
+    sums = _cluster_sums(onehot_t, x)
+    counts = onehot_t.sum(2)  # exact: integers below 2^24
     means = sums / counts.clamp(min=1.0).unsqueeze(-1)
     return torch.where((counts > 0).unsqueeze(-1), means,
                        centroids).to(x.dtype)
@@ -94,27 +113,21 @@ def _lloyd_iter_aniso(x: torch.Tensor, centroids: torch.Tensor,
                       eta: float) -> torch.Tensor:
     """One anisotropic Lloyd step per subspace (weighted assignment, then
     the exact weighted-least-squares update): [M, n, d], [M, k, d] ->
-    [M, k, d]. The per-cluster sums are scatter-adds over the assignment,
-    the scatter matrices over the rows' [d, d] outer products. An empty
-    cluster solves the identity system, which keeps its centroid."""
+    [M, k, d]. The per-cluster sums are one-hot products, the scatter
+    matrices over the rows' [d, d] outer products. An empty cluster solves
+    the identity system, which keeps its centroid."""
     msub, n, d = x.shape
     k = centroids.shape[1]
     w = aniso_weight(eta)
     x = x.float()
     assign = torch.argmin(aniso_assign_scores(x, centroids, eta), dim=2)
     nrm, v = _unit_directions(x)
-
-    def cluster_sum(rows: torch.Tensor) -> torch.Tensor:  # [M, n, c]
-        out = torch.zeros((msub, k, rows.shape[2]), dtype=torch.float32,
-                          device=x.device)
-        return out.scatter_add_(
-            1, assign.unsqueeze(-1).expand(-1, -1, rows.shape[2]), rows)
-
-    counts = cluster_sum(torch.ones((msub, n, 1), device=x.device))[..., 0]
-    sum_x = cluster_sum(x)
+    onehot_t = _one_hot(assign, k)
+    counts = onehot_t.sum(2)
+    sum_x = _cluster_sums(onehot_t, x)
     # sum_i v_i (v_i . x_i) = sum_i v_i ||x_i||
-    sum_vn = cluster_sum(v * nrm.unsqueeze(-1))
-    s = cluster_sum((v.unsqueeze(-1) * v.unsqueeze(-2)).reshape(
+    sum_vn = _cluster_sums(onehot_t, v * nrm.unsqueeze(-1))
+    s = _cluster_sums(onehot_t, (v.unsqueeze(-1) * v.unsqueeze(-2)).reshape(
         msub, n, d * d)).reshape(msub, k, d, d)
     eye = torch.eye(d, dtype=torch.float32, device=x.device)
     filled = counts > 0
@@ -130,12 +143,12 @@ def lloyd_iters(x_sub: torch.Tensor, centroids: torch.Tensor,
                 iters: int, eta: float | None = None) -> torch.Tensor:
     """`iters` Lloyd steps over [M, n, dsub] from `centroids` [M, k, dsub]
     (anisotropic steps with `eta`), a few subspaces at a time so the
-    distance slab, and the anisotropic step's outer products, stay
-    bounded."""
+    distance slab, the one-hot and the anisotropic step's outer products
+    stay bounded."""
     msub, n, dsub = x_sub.shape
     per_sub = n * centroids.shape[1] * 4
     if eta is not None:
-        per_sub = max(per_sub, n * dsub * dsub * 4)
+        per_sub += n * dsub * dsub * 4
     step = max(1, LLOYD_SLAB_BYTES // max(1, per_sub))
     for _ in range(iters):
         centroids = torch.cat([

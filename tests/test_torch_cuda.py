@@ -182,12 +182,15 @@ def test_adc_prep_layout_matches_plain(case, card):
 # with odd dsub and K < 256, Q = 1, dsub = 2 (the 128-d schedule), the
 # JAX kernel test's Q > 128 shape, one query past an m16 tile and past
 # the 128-query block tile, the crossover's Q = 64 at the cell's widths,
-# and odd N with dsub = 15
+# odd N with dsub = 15, M = 200 (above the M the kernel stages in shared
+# memory: codes read from global memory) and odd M (codes staged a byte
+# at a time)
 DECODE_SHAPES = [(512, 1 << 16, 64, 256, 15), (3, 1000, 8, 64, 21),
                  (1, 777, 64, 256, 2), (7, 300, 64, 256, 2),
                  (130, 1030, 12, 256, 16), (17, 1000, 16, 256, 4),
                  (129, 2048, 32, 200, 7), (64, 1 << 14, 64, 256, 15),
-                 (5, 1003, 64, 256, 15)]
+                 (5, 1003, 64, 256, 15), (5, 1003, 200, 256, 3),
+                 (9, 1001, 7, 256, 3)]
 
 
 @pytest.mark.parametrize("shape", DECODE_SHAPES, ids=str)
@@ -222,6 +225,40 @@ def test_decode_scan_code_slices_are_independent(case, card):
     full = decode_scan(q_c, codes, cb)
     part = decode_scan(q_c, codes[lo:hi], cb)
     torch.testing.assert_close(part, full[:, lo:hi], rtol=0, atol=0)
+
+
+# every ragged edge of the kernel's 256-query x 128-row tile: Q and N one
+# below, at and one past the tile's m64 and 256-query sizes and its
+# 128-row / 256-row steps, N = 1, at the widths of the GIST cell (M = 64,
+# dsub = 15, odd: pairs straddle subspaces) and of the 128-d schedule
+# (dsub = 2)
+@pytest.mark.parametrize("dsub", [2, 15])
+@pytest.mark.parametrize("n", [1, 255, 4097])
+@pytest.mark.parametrize("q", [1, 63, 64, 255, 256, 257, 512])
+def test_decode_scan_ragged_tiles_match_plain(q, n, dsub, card):
+    gen = torch.Generator(device=card).manual_seed(q * 7919 + n * 31 + dsub)
+    q_c = torch.randn((q, 64 * dsub), generator=gen, device=card)
+    codes = torch.randint(0, 256, (n, 64), generator=gen, device=card,
+                          dtype=torch.uint8)
+    cb = torch.randn((64, 256, dsub), generator=gen, device=card)
+    got = decode_scan(q_c, codes, cb)
+    torch.cuda.synchronize()
+    assert got.shape == (q, n) and bool(torch.isfinite(got).all())
+    err = (got - decode_scan_reference(q_c, codes, cb)).abs()
+    assert bool((err <= decode_error_bound(q_c, codes, cb)).all())
+
+
+def test_decode_scan_repeat_launches_are_identical(card):
+    """Two launches on the same inputs give the same bits: no atomics,
+    and the summation order does not depend on scheduling."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    q_c = torch.randn((512, 64 * 15), generator=gen, device=card)
+    codes = torch.randint(0, 256, (1 << 16, 64), generator=gen, device=card,
+                          dtype=torch.uint8)
+    cb = torch.randn((64, 256, 15), generator=gen, device=card)
+    first = decode_scan(q_c, codes, cb)
+    second = decode_scan(q_c, codes, cb)
+    assert torch.equal(first, second)
 
 
 def test_decode_scan_rejects_inputs_the_kernel_does_not_take(card):
@@ -494,9 +531,10 @@ def test_scalar_codes_and_hamming_on_card_match_cpu(bits, card):
 
 
 def test_aniso_lloyd_step_on_card_matches_cpu(card):
-    """One anisotropic Lloyd step (scatter-adds and a batched solve) from
-    shared centroids: rtol 1e-3 / atol 1e-4 (atomic adds sum in another
-    order); the anisotropic encode: codes equal on >= 99.5 %."""
+    """One anisotropic Lloyd step (one-hot products and a batched solve)
+    from shared centroids: rtol 1e-3 / atol 1e-4 (the card's matmuls sum
+    in another order than the CPU's); the anisotropic encode: codes equal
+    on >= 99.5 %."""
     from opensearch_jvector_tpu_torch.models import pq
     from opensearch_jvector_tpu_torch.ops import kmeans
 
@@ -514,6 +552,31 @@ def test_aniso_lloyd_step_on_card_matches_cpu(card):
         codebooks=want.to(card), center=torch.zeros(32, device=card),
         aniso_eta=3.7), rows.to(card)).cpu()
     assert (codes == on_card).float().mean() >= 0.995
+
+
+@pytest.mark.parametrize("step", ["lloyd", "lloyd_aniso", "train_pq"])
+def test_kmeans_on_card_is_deterministic(step, card):
+    """The same inputs and seed give the same bits on a second run: the
+    cluster sums are one-hot products, not atomic adds."""
+    from opensearch_jvector_tpu_torch.models import pq
+    from opensearch_jvector_tpu_torch.ops import kmeans
+
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((8, 20000, 4)).astype(
+        np.float32)).to(card)
+    c = x[:, :256].clone() + 0.01
+
+    def run():
+        if step == "lloyd":
+            return kmeans._lloyd_iter(x, c)
+        if step == "lloyd_aniso":
+            return kmeans._lloyd_iter_aniso(x, c, 3.7)
+        rows = x.transpose(0, 1).reshape(20000, 32)
+        return pq.train_pq(rows, SimilarityFunction.EUCLIDEAN,
+                           num_subspaces=8).codebooks
+
+    first = run()
+    assert torch.equal(first, run())
 
 
 QUANT_MODES = {

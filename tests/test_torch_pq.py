@@ -146,6 +146,41 @@ def test_lloyd_iter_matches_from_same_centroids():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("aniso", [False, True], ids=["plain", "aniso"])
+def test_lloyd_step_with_an_empty_cluster_matches_the_reference(aniso):
+    """The one-hot cluster sums against the JAX step, where one centroid
+    is far from every row: its cluster is empty and it stays as it was."""
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((2, 700, 5)).astype(np.float32)
+    c0 = x[:, :12].copy() + 0.01
+    c0[:, 7] = 50.0
+    eta = np.float32(2.5)
+    want = np.stack([np.asarray(
+        jkm._lloyd_iter_aniso(jnp.asarray(x[i]), jnp.asarray(c0[i]), eta)
+        if aniso else jkm._lloyd_iter(jnp.asarray(x[i]), jnp.asarray(c0[i])))
+        for i in range(2)])
+    tx, tc = torch.from_numpy(x), torch.from_numpy(c0)
+    got = (tkm._lloyd_iter_aniso(tx, tc, float(eta)) if aniso
+           else tkm._lloyd_iter(tx, tc)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(got[:, 7], c0[:, 7])
+
+
+def test_cluster_sums_equal_the_per_cluster_sums():
+    """`_cluster_sums` over `_one_hot` equals a float64 sum per cluster."""
+    rng = np.random.default_rng(9)
+    assign = rng.integers(0, 6, (3, 400))
+    assign[assign == 4] = 0  # cluster 4 empty in every subspace
+    rows = rng.standard_normal((3, 400, 7)).astype(np.float32)
+    got = tkm._cluster_sums(tkm._one_hot(torch.from_numpy(assign), 6),
+                            torch.from_numpy(rows)).numpy()
+    want = np.zeros((3, 6, 7))
+    for m in range(3):
+        np.add.at(want[m], assign[m], rows[m].astype(np.float64))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert not got[:, 4].any()
+
+
 def test_kmeanspp_seeds_are_corpus_rows_and_seeded():
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.standard_normal((2, 300, 4)).astype(np.float32))
