@@ -6,8 +6,9 @@
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. device: card name, and name + power limit as nvidia-smi reports them;
-  2. build: compile the CUDA kernels and the host row store from the
-     sources in this checkout, all compilers started together, with
+  2. build: compile the CUDA kernels (adc_scan, decode_scan, beam_search,
+     robust_prune) and the host row store from the sources in this
+     checkout, all compilers started together, with
      ptxas's registers and spills of every kernel and the counts of
      tensor-core instructions in decode_scan_kernel's SASS where cuobjdump
      is found: HGMMA (wgmma, which the kernel must hold) and HMMA;
@@ -19,7 +20,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      map and validity mask in the epilogue) at the in_memory cell, held to
      the plain version and, exactly, to the raw kernel mapped and masked;
      decode_scan at the GIST cell's Q=512 and at the routing gate's lowest
-     batch, Q=256. With --compare-decode-scan, another decode_scan.cu (an
+     batch, Q=256; robust_prune at the insert round's shape (B = 16,384
+     points of a 250,000-row corpus, C = 132 nearest candidates, d = 128)
+     and at the overflow prune's C = 70, held to its plain version: every
+     row a run of the rule on the plain distances but for comparisons
+     within their pair's dcc_error_bound of equality (selection_margins),
+     99 % of the rows the plain version's (no single library call
+     computes it). With --compare-decode-scan, another
+     decode_scan.cu (an
      earlier commit's, say) is built with the same flags, held to the same
      plain version and timed beside this checkout's kernel in turns
      (other, this, this, other) at both shapes;
@@ -151,7 +159,21 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      250,000-row graph (beam search, exact provider, ef_search 100, 2,048
      of phase 4's queries) within 0.01 of the unprofiled one's, and the
      300,000-node graph at the recall target; ground truth from
-     ground_truth_topk_stream over 2^16-row host blocks.
+     ground_truth_topk_stream over 2^16-row host blocks. The split is
+     printed beside the shares PERF.md records from before the two build
+     kernels. Then beam_search is held to its plain version on the
+     250,000-row graph:
+     one insert round's batch (16,384 rows outside the graph, L = 100,
+     E = 8, 21 steps) and 512-query beam-tier batches at ef_search 100
+     and 200 (E = 16), with the kernel's time, the plain version's and the
+     bound from the bytes the kernel's own counters say it read; then
+     both kernels' bf16 instantiations at the quantized build's shapes
+     (phase 12: 8,192-row rounds over bf16 rows), over a bf16 copy of the
+     rows: beam_search through the decoded-cache provider and
+     robust_prune at C = 132.
+Phases 4, 7, 8a, 12 and 13 count beam_search's and robust_prune's
+launches over their flushes, merges and builds, and hold them above 0
+(phase 12: those over bf16 rows).
 The in_memory corpus is the latent-16 "sift-like" generator of bench.py
 (make_data), the GIST-shaped one the latent-32 960-d generator of
 bench.py's gist section, both made with numpy from --seed. The last two
@@ -248,6 +270,13 @@ ON_DISK_SPANS = ("approximate", "rerank_gather", "rerank_score")
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12  # float32 outside the tensor cores
 PEAK_BF16_S = 989e12  # bf16 tensor cores, dense
+# the graph build's kernels (the beam walk and the robust prune), which
+# every flush, merge and quantized build launches
+BUILD_KERNELS = ("beam_search", "robust_prune")
+# phase 13's split of the 250,000-row build before these kernels, as
+# PERF.md §5 records it, printed beside this run's
+EARLIER_SHARES = {"search": 45.9, "backedges_host": 27.9, "overflow": 13.1,
+               "prune+fwd": 9.6}
 # shared memory: 32 banks, one 4-byte access each a clock, per SM
 SMEM_LOOKUPS_PER_CLOCK = 32
 
@@ -483,6 +512,146 @@ def check_decode_scan(q, n, m, k, dsub, seed, reps, plain_reps,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
+def check_robust_prune(rows, b, c, seed, reps, plain_reps, what="fp32"):
+    """robust_prune vs robust_prune_reference on the card -> record dict.
+
+    `b` points of `rows` (on the card, float32 or bf16) each prune their
+    `c` nearest rows (the point itself among them) with the last four
+    columns of every eighth row -1 and a repeated id a row, scored as the
+    builder scores them, to the builder's degree 32 at alpha 1.2. Held:
+    every row of the kernel is a run of the rule on the plain version's
+    distances except through comparisons alpha * d(c*, c) < d(p, c) that
+    lie within their own pair's `dcc_error_bound` of equality
+    (`selection_margins` share <= 1), and 99 % of the rows are the plain
+    version's. max_abs_err is the largest gap |alpha * d(c*, c) - d(p, c)|
+    of a comparison the kernel took the other way (0 where none did). The
+    bound: the unique candidate rows, ids, scores and selections over the
+    memory rate, or the norms and the distances the kernel's run computes
+    at 2 * d float32 operations each (one dot) over the float32 rate."""
+    from opensearch_jvector_tpu_torch.ops.distances import (
+        SimilarityFunction,
+        batched_candidate_scores,
+        pairwise_sqdist,
+    )
+    from opensearch_jvector_tpu_torch.ops.prune_kernel import (
+        robust_prune,
+        robust_prune_reference,
+        selection_margins,
+    )
+
+    simf = SimilarityFunction.EUCLIDEAN
+    n, d = rows.shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pts = torch.randperm(n, generator=gen, device="cuda")[:b]
+    ids = torch.cat([torch.topk(pairwise_sqdist(rows[pts[s: s + 2048]].float(),
+                                                rows.float()),
+                                c, largest=False).indices
+                     for s in range(0, b, 2048)])
+    ids[::8, -4:] = -1
+    ids[:, 5] = ids[:, 2]
+    sc = batched_candidate_scores(rows[pts].float(),
+                                  rows[ids.clamp(min=0)].float(), simf)
+    sc = torch.where(ids >= 0, sc, float("-inf"))
+
+    def kernel():
+        return robust_prune(rows, ids, sc, 1.2, PROF_DEGREE, simf,
+                            point_ids=pts)
+
+    def plain():
+        return robust_prune_reference(None, ids, rows[ids.clamp(min=0)],
+                                      sc, 1.2, PROF_DEGREE, simf,
+                                      point_ids=pts)
+
+    got = kernel()
+    want = plain()
+    margin, share, pairs = selection_margins(rows, ids, sc, 1.2, simf, pts,
+                                             got)
+    torch.cuda.synchronize()
+    same = (got == want).all(1)
+    differ = int((~same).sum())
+    max_err, max_share = float(margin.max()), float(share.max())
+    log(f"  robust_prune ({what} rows) B={b} C={c} d={d}: rows differing "
+        f"from the plain version {differ} / {b}; largest gap of a "
+        f"comparison taken the other way (max_abs_err) {max_err:.3e}, its "
+        f"largest share of the pair's bound {max_share:.4f}")
+    if max_share > 1.0 or differ > 0.01 * b:
+        raise AssertionError(f"robust_prune disagrees with its plain version "
+                             f"at B={b} C={c} ({what} rows)")
+    ms = cuda_ms(kernel, reps)
+    plain_ms = cuda_ms(plain, plain_reps)
+    uniq = int(torch.unique(ids[ids >= 0]).numel())
+    alive0 = int((ids >= 0).sum())  # the norms, at most one a column
+    bound_ms, bound_by = bound_of(
+        uniq * d * rows.element_size() + b * c * 12 + b * 8
+        + b * PROF_DEGREE * 8,
+        2.0 * d * (alive0 + int(pairs.sum())), PEAK_F32_S)
+    log(f"  robust_prune ({what} rows) {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+        f" bound {bound_ms:.4f} ms ({bound_by}; {uniq} unique rows, "
+        f"{int(pairs.sum())} distances the kernel's run computes); no single"
+        f" library call computes this function (a sequential arg-min and "
+        f"mask loop)")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def check_beam_search(what, adj, entry, prov, q, L, E, iters, reps,
+                      plain_reps):
+    """beam_search vs beam_search_reference on the card -> record dict.
+
+    Held: where the plain walk has no near tie (`kernel_error_bound`), the
+    same pool as a set, scores within the bound and the same counters;
+    pools overlapping 0.98 on average and the same pool in 80 % of the
+    queries. The bound: the bytes the kernel's own counters say the walk
+    read (visited rows of d values, expanded adjacency rows, the queries,
+    the pool written) over the memory rate."""
+    from opensearch_jvector_tpu_torch.ops.beam_kernel import (
+        beam_search,
+        beam_search_reference,
+        kernel_error_bound,
+    )
+
+    gi, gs, gv, ge = beam_search(adj, entry, prov, q, L, E, iters)
+    ids, scores, vis, exp, near, bound = beam_search_reference(
+        adj, entry, prov, q, L, E, iters,
+        tie_bound=lambda i: kernel_error_bound(prov, i))
+    torch.cuda.synchronize()
+    si, so = torch.sort(gi, 1)
+    ri, ro = torch.sort(ids, 1)
+    same = (si == ri).all(1) & (gv == vis) & (ge == exp)
+    real = (ri >= 0) & same[:, None]
+    err = (torch.gather(gs, 1, so) - torch.gather(scores, 1, ro)).abs()
+    out = int((err > torch.gather(bound, 1, ro))[real].sum())
+    max_err = float(err[real].max()) if bool(real.any()) else None
+    inter = [len(np.intersect1d(a[a >= 0], b_[b_ >= 0])) / max(1,
+             int((b_ >= 0).sum())) for a, b_ in zip(gi.cpu().numpy(),
+                                                    ids.cpu().numpy())]
+    overlap = float(np.mean(inter))
+    off = int((~same & ~near).sum())
+    log(f"  beam_search {what} (Q={q}, L={L}, E={E}, M={adj.shape[1]}, "
+        f"max_iters={iters}): same pool and counters in "
+        f"{float(same.float().mean()):.4f} of the queries, near a tie "
+        f"{float(near.float().mean()):.4f}, differing without a near tie "
+        f"{off}; mean pool overlap {overlap:.5f}; max_abs_err {max_err},"
+        f" out of bound {out}")
+    if off or out or overlap < 0.98 or float(same.float().mean()) < 0.8:
+        raise AssertionError(f"beam_search disagrees with its plain version "
+                             f"({what})")
+    ms = cuda_ms(lambda: beam_search(adj, entry, prov, q, L, E, iters), reps)
+    plain_ms = cuda_ms(lambda: beam_search_reference(adj, entry, prov, q, L,
+                                                     E, iters), plain_reps)
+    d = prov.rows.shape[1]
+    nbytes = (int(gv.sum()) * d * prov.rows.element_size()
+              + int(ge.sum()) * adj.shape[1] * 4 + q * d * 4 + q * L * 12)
+    bound_ms, bound_by = bound_of(nbytes, 4.0 * d * int(gv.sum()),
+                                  PEAK_F32_S)
+    log(f"  beam_search {what}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {int(gv.sum())} rows scored, "
+        f"{int(ge.sum())} expanded); no single library call computes this "
+        f"function (a data-dependent walk)")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
 def compare_decode_scan(src: Path, shapes, seed: int) -> None:
     """Build another decode_scan.cu (`src`) with this checkout's flags into
     a temporary directory, hold it to the plain version, and time it beside
@@ -551,9 +720,6 @@ def profile_batch(index, queries, sc, expect: str | None = None) -> None:
     launches the batch made and every device row the trace kept."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    from opensearch_jvector_tpu_torch.ops.adc_kernel import adc_scan
-    from opensearch_jvector_tpu_torch.ops.pq_scan_kernel import decode_scan
-
     # device-only rows (kernels, copies); CPU-side ops and the profiler
     # ranges ("query" and the on_disk stages, which the trace also shows as
     # device annotations) would count their kernels' time twice
@@ -568,14 +734,14 @@ def profile_batch(index, queries, sc, expect: str | None = None) -> None:
             index.search(queries, sc)
             torch.cuda.synchronize()
             prof.step()
-            before = kernel_counts(adc_scan, decode_scan)
+            before = kernel_counts()
             t0 = time.monotonic()
             index.search(queries, sc)
             torch.cuda.synchronize()
             wall_us = (time.monotonic() - t0) * 1e6
             prof.step()
         made = {k: v - before[k]
-                for k, v in kernel_counts(adc_scan, decode_scan).items()}
+                for k, v in kernel_counts().items()}
         averages = traced[0]
         rows = [(e.self_device_time_total, e.key, e.count)
                 for e in averages
@@ -678,8 +844,35 @@ def mma_counts(lib: Path) -> tuple[str, int | None]:
             f"instructions in decode_scan_kernel ({tool})", counts["HGMMA"])
 
 
-def kernel_counts(*kernels) -> dict:
-    return {k.__name__: k.launches for k in kernels}
+def path_kernels():
+    """The kernels of the port's main paths, each with its launch count."""
+    from opensearch_jvector_tpu_torch.ops.adc_kernel import adc_scan
+    from opensearch_jvector_tpu_torch.ops.beam_kernel import beam_search
+    from opensearch_jvector_tpu_torch.ops.pq_scan_kernel import decode_scan
+    from opensearch_jvector_tpu_torch.ops.prune_kernel import robust_prune
+
+    return adc_scan, decode_scan, beam_search, robust_prune
+
+
+# the kernels whose launches over bf16 rows are also counted apart
+BF16_KERNELS = ("beam_search", "robust_prune")
+
+
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0 (just before a path runs)."""
+    for k in path_kernels():
+        k.launches = 0
+        if k.__name__ in BF16_KERNELS:
+            k.bf16_launches = 0
+
+
+def kernel_counts() -> dict:
+    """Every kernel's launches since the last reset_counts(), and as
+    `<name>_bf16` those of the graph build's kernels over bf16 rows."""
+    counts = {k.__name__: k.launches for k in path_kernels()}
+    counts.update({f"{k.__name__}_bf16": k.bf16_launches
+                   for k in path_kernels() if k.__name__ in BF16_KERNELS})
+    return counts
 
 
 def live_truth(queries, rows, live_ids, k):
@@ -782,9 +975,7 @@ def phase_9a(seed: int, n_queries: int, launches: dict) -> None:
     )
     from opensearch_jvector_tpu_torch.index.index import VectorIndex
     from opensearch_jvector_tpu_torch.models import nvq as nvq_mod
-    from opensearch_jvector_tpu_torch.ops.adc_kernel import adc_scan
     from opensearch_jvector_tpu_torch.ops.distances import SimilarityFunction
-    from opensearch_jvector_tpu_torch.ops.pq_scan_kernel import decode_scan
     from opensearch_jvector_tpu_torch.utils.ground_truth import (
         ground_truth_topk,
     )
@@ -847,10 +1038,10 @@ def phase_9a(seed: int, n_queries: int, launches: dict) -> None:
                                SimilarityFunction.EUCLIDEAN)
         torch.cuda.reset_peak_memory_stats()
         index.search(queries[:BATCH], sc)  # warm: the decoded caches
-        adc_scan.launches = decode_scan.launches = 0
+        reset_counts()
         search_held("3 NVQ segments (2 scanned, 1 beam)", index, queries, gt,
                     sc, deep)
-        launches["nvq"] = kernel_counts(adc_scan, decode_scan)
+        launches["nvq"] = kernel_counts()
         log(f"  peak device memory while searching (the two scan segments' "
             f"bf16 decoded caches included): "
             f"{torch.cuda.max_memory_allocated()} B")
@@ -907,9 +1098,7 @@ def phase_9b(seed: int, launches: dict) -> None:
     )
     from opensearch_jvector_tpu_torch.api.stats import Counter
     from opensearch_jvector_tpu_torch.index.index import VectorIndex
-    from opensearch_jvector_tpu_torch.ops.adc_kernel import adc_scan
     from opensearch_jvector_tpu_torch.ops.distances import SimilarityFunction
-    from opensearch_jvector_tpu_torch.ops.pq_scan_kernel import decode_scan
     from opensearch_jvector_tpu_torch.utils.ground_truth import (
         ground_truth_topk,
         recall_at_k,
@@ -923,7 +1112,7 @@ def phase_9b(seed: int, launches: dict) -> None:
     log(f"[9b/13] scalar quantization {SCALAR_MODES}: {SCALAR_N} x {DIM} in "
         f"one flush each, {VAMANA_QUERIES} queries, k={K}, overquery "
         f"{SCALAR_OVERQUERY}")
-    adc_scan.launches = decode_scan.launches = 0
+    reset_counts()
     for quant in SCALAR_MODES:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_sq_") as root:
             index = VectorIndex(root, DiskAnnConfig(
@@ -970,8 +1159,8 @@ def phase_9b(seed: int, launches: dict) -> None:
             del index, seg
             gc.collect()
             torch.cuda.empty_cache()
-    launches["scalar"] = kernel_counts(adc_scan, decode_scan)
-    if any(launches["scalar"].values()):
+    launches["scalar"] = kernel_counts()
+    if launches["scalar"]["adc_scan"] or launches["scalar"]["decode_scan"]:
         raise AssertionError("a scalar search launched a PQ kernel")
 
 
@@ -985,9 +1174,7 @@ def phase_9c(seed: int, launches: dict, plain_pq_ms: int) -> None:
     )
     from opensearch_jvector_tpu_torch.api.stats import Counter
     from opensearch_jvector_tpu_torch.index.index import VectorIndex
-    from opensearch_jvector_tpu_torch.ops.adc_kernel import adc_scan
     from opensearch_jvector_tpu_torch.ops.distances import SimilarityFunction
-    from opensearch_jvector_tpu_torch.ops.pq_scan_kernel import decode_scan
     from opensearch_jvector_tpu_torch.utils.ground_truth import (
         ground_truth_topk,
     )
@@ -1033,10 +1220,10 @@ def phase_9c(seed: int, launches: dict, plain_pq_ms: int) -> None:
                                torch.as_tensor(vectors, device="cuda"), K,
                                dot)
         index.search(queries[:BATCH], sc)  # warm
-        adc_scan.launches = decode_scan.launches = 0
+        reset_counts()
         search_held("1 scan segment + 1 beam segment with the upper layer",
                     index, queries, gt, sc, deep)
-        launches["aniso_hierarchy"] = kernel_counts(adc_scan, decode_scan)
+        launches["aniso_hierarchy"] = kernel_counts()
         _, (expanded, base) = counter_deltas(
             index, lambda: search_all(index, queries, sc),
             Counter.KNN_QUERY_EXPANDED_NODES,
@@ -1150,9 +1337,7 @@ def phase_10(root: str, vectors, queries, mem_ids, mem_scores, truth, basis,
 
     from opensearch_jvector_tpu_torch.api.config import SearchConfig
     from opensearch_jvector_tpu_torch.api.stats import STATS, Counter
-    from opensearch_jvector_tpu_torch.ops.adc_kernel import adc_scan
     from opensearch_jvector_tpu_torch.ops.distances import SimilarityFunction
-    from opensearch_jvector_tpu_torch.ops.pq_scan_kernel import decode_scan
     from opensearch_jvector_tpu_torch.service.http import STAGES, KnnService
     from opensearch_jvector_tpu_torch.utils.ground_truth import (
         ground_truth_topk,
@@ -1166,7 +1351,7 @@ def phase_10(root: str, vectors, queries, mem_ids, mem_scores, truth, basis,
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    adc_scan.launches = decode_scan.launches = 0
+    reset_counts()
     t_phase = time.monotonic()
     svc = KnnService(root, device="cuda", batch_window_ms=2.0)
     svc.start()
@@ -1453,7 +1638,7 @@ def phase_10(root: str, vectors, queries, mem_ids, mem_scores, truth, basis,
         rest.close()
         svc.stop()
         mgr.close()
-    launches["serving"] = kernel_counts(adc_scan, decode_scan)
+    launches["serving"] = kernel_counts()
     peak = torch.cuda.max_memory_allocated()
     log(f"  phase 10: {time.monotonic() - t_phase:.1f} s, peak device "
         f"memory {peak} B = {peak / 2**30:.2f} GiB over the phase "
@@ -1532,8 +1717,6 @@ def phase_11(vectors, queries, basis, vv, vq, seed: int, smi: str,
         SearchConfig,
     )
     from opensearch_jvector_tpu_torch.api.stats import Counter
-    from opensearch_jvector_tpu_torch.ops.adc_kernel import adc_scan
-    from opensearch_jvector_tpu_torch.ops.pq_scan_kernel import decode_scan
     from opensearch_jvector_tpu_torch.parallel.distributed import (
         ShardedVectorIndex,
     )
@@ -1573,9 +1756,9 @@ def phase_11(vectors, queries, basis, vv, vq, seed: int, smi: str,
 
     # (a) the host fan-out: each shard's own search on the search pool
     idx.search(queries[:BATCH], sc)  # warm: segment loads
-    adc_scan.launches = decode_scan.launches = 0
+    reset_counts()
     ids, _, wall = search_all(idx, queries, sc)
-    launches["sharded_host"] = kernel_counts(adc_scan, decode_scan)
+    launches["sharded_host"] = kernel_counts()
     recall = recall_at_k(ids, truth, K)
     log(f"  (a) host fan-out: {1000 * wall / nq:.5f} ms/query batched, "
         f"recall@{K} {recall:.4f}, launches {launches['sharded_host']}")
@@ -1587,10 +1770,10 @@ def phase_11(vectors, queries, basis, vv, vq, seed: int, smi: str,
     idx.attach_mesh(mesh)
     s0 = idx.stats()
     idx.search(queries[:BATCH], deep)  # warm: the restack
-    adc_scan.launches = decode_scan.launches = 0
+    reset_counts()
     ids_d, _, wall_d = search_all(idx, queries, sc)
     ids, _, wall = search_all(idx, queries, deep)
-    launches["sharded_mesh"] = kernel_counts(adc_scan, decode_scan)
+    launches["sharded_mesh"] = kernel_counts()
     s1 = idx.stats()
     n_restack, _, restack_ms = _stat_deltas(s0, s1, *restack)
     n_reject = sum(_stat_deltas(s0, s1, *rejects))
@@ -1633,9 +1816,9 @@ def phase_11(vectors, queries, basis, vv, vq, seed: int, smi: str,
     rows_dev = torch.as_tensor(rows, device="cuda")
     truth = live_truth(queries, rows, np.nonzero(live)[0], K)
     s0 = idx.stats()
-    adc_scan.launches = decode_scan.launches = 0
+    reset_counts()
     mem_ids, mem_scores, wall = search_all(idx, queries, deep)
-    launches["sharded_churn"] = kernel_counts(adc_scan, decode_scan)
+    launches["sharded_churn"] = kernel_counts()
     s1 = idx.stats()
     n_restack, n_partial, restack_ms = _stat_deltas(s0, s1, *restack)
     recall = check_live_answers("mesh after the churn", mem_ids, mem_scores,
@@ -1664,7 +1847,7 @@ def phase_11(vectors, queries, basis, vv, vq, seed: int, smi: str,
                                                 "dimension": DIM}}}})
         count = rest("GET", "/shardy/_count")["count"]
         stats0 = rest("GET", "/_plugins/_knn/stats")["nodes"]["local"]
-        adc_scan.launches = decode_scan.launches = 0
+        reset_counts()
         ids, scores = [], []
         t0 = time.monotonic()
         for s in range(0, nq, BATCH):
@@ -1693,7 +1876,7 @@ def phase_11(vectors, queries, basis, vv, vq, seed: int, smi: str,
         tied = np.isclose([d2_of.get(int(d), np.inf) for d in got],
                           [d2_of[int(d)] for d in want], rtol=1e-6)
         script_ok = bool((got == want).all() or tied.all())
-        launches["sharded_rest"] = kernel_counts(adc_scan, decode_scan)
+        launches["sharded_rest"] = kernel_counts()
         stats1 = rest("GET", "/_plugins/_knn/stats")["nodes"]["local"]
         deltas = [stats1[c] - stats0[c] for c in (
             "knn_query_count", "script_query_requests",
@@ -1730,13 +1913,13 @@ def phase_11(vectors, queries, basis, vv, vq, seed: int, smi: str,
         dt = time.monotonic() - t0
         vtruth = live_truth(vq, vv, np.arange(n_v), K)
         didx.search(vq[:BATCH], sc)  # warm: loads, restack
-        adc_scan.launches = decode_scan.launches = 0
+        reset_counts()
         s0 = didx.stats()
         t0 = time.monotonic()
         ids, scores, held = search_held("on_disk shards on the mesh", didx,
                                         vq, vtruth, sc, deep)
         wall = time.monotonic() - t0
-        launches["sharded_on_disk"] = kernel_counts(adc_scan, decode_scan)
+        launches["sharded_on_disk"] = kernel_counts()
         s1 = didx.stats()
         check_exact_scores("on_disk mesh", ids, scores, vq,
                            torch.as_tensor(vv, device="cuda"))
@@ -1776,8 +1959,6 @@ def phase_12(seed: int, smi: str, launches: dict) -> None:
         ForceMergesOnlyMergePolicy,
     )
     from opensearch_jvector_tpu_torch.models import builder as builder_mod
-    from opensearch_jvector_tpu_torch.ops.adc_kernel import adc_scan
-    from opensearch_jvector_tpu_torch.ops.pq_scan_kernel import decode_scan
     from opensearch_jvector_tpu_torch.utils.circuit_breaker import BREAKER
     from opensearch_jvector_tpu_torch.utils.ground_truth import recall_at_k
 
@@ -1815,11 +1996,13 @@ def phase_12(seed: int, smi: str, launches: dict) -> None:
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         before = idx.stats.snapshot()
+        reset_counts()
         t0 = time.monotonic()
         idx.add_batch(np.arange(n), rows[:n])
         name = idx.flush(device_rows=provider)
         torch.cuda.synchronize()
         dt = time.monotonic() - t0
+        launches["quantized_build_flush"] = kernel_counts()
     finally:
         builder_mod.GraphIndexBuilder.build = real_build
     peak = torch.cuda.max_memory_allocated() - base
@@ -1841,9 +2024,14 @@ def phase_12(seed: int, smi: str, launches: dict) -> None:
         f"used: {entry_ok}); peak device memory over the rows on the card "
         f"{peak} B against decoded bf16 + adjacency + codes at the capacity "
         f"{resident} B; {smi}")
+    log(f"  launches over the flush: {launches['quantized_build_flush']}")
     if (sources != [torch.bfloat16] or not entry_ok
             or cap < idx.writer.quantized_build_min_capacity):
         raise AssertionError("the flush did not take the quantized build")
+    if min(launches["quantized_build_flush"][f"{k}_bf16"]
+           for k in BUILD_KERNELS) <= 0:
+        raise AssertionError("the quantized build did not launch both "
+                             f"{BUILD_KERNELS} over its bf16 rows")
     del rows_dev, seg
     name2, dt2, _, _ = flush_rows(idx, rows, n, n_scan)
     log(f"  flush {name2}: {n_scan} rows in {dt2:.2f} s (scan tier)")
@@ -1860,15 +2048,14 @@ def phase_12(seed: int, smi: str, launches: dict) -> None:
             ridx._reader(n_)  # load before the breaker tightens
         if rung == "tight":
             tight_breaker_limit(GLOBAL_SETTINGS, BREAKER)
-        adc_scan.launches = decode_scan.launches = 0
+        reset_counts()
         try:
             ids, _, held = search_held(f"the 2^22 segment + the scan segment, "
                                        f"{rung} breaker", ridx, queries, truth,
                                        SearchConfig(k=K), deep)
         finally:
             GLOBAL_SETTINGS.put("knn.memory.circuit_breaker.limit", 50.0)
-        launches[f"quantized_build_{rung}"] = kernel_counts(adc_scan,
-                                                            decode_scan)
+        launches[f"quantized_build_{rung}"] = kernel_counts()
         cached = [ridx._reader(n_)._pq_decoded is not None
                   for n_ in ridx.segment_names]
         log(f"  {rung} breaker: decoded cache per segment {cached}, launches "
@@ -1907,8 +2094,11 @@ def ramp_rounds(n: int, batch: int, max_degree: int) -> int:
 
 
 def phase_13(rows: np.ndarray, queries: np.ndarray, basis, seed: int,
-             smi: str) -> None:
-    """The graph build profile: see the module docstring."""
+             smi: str, launches: dict) -> dict:
+    """The graph build profile: see the module docstring. Returns the
+    kernel records it measures: beam_search at the insert round's shape,
+    and beam_search and robust_prune over bf16 rows at the quantized
+    build's (phase 12)."""
     from opensearch_jvector_tpu_torch.models import builder as builder_mod
     from opensearch_jvector_tpu_torch.models import searcher as searcher_mod
     from opensearch_jvector_tpu_torch.models.graph import bucket_capacity
@@ -1964,7 +2154,9 @@ def phase_13(rows: np.ndarray, queries: np.ndarray, basis, seed: int,
                 f"{k} {v:.3f} s ({100 * v / wall:.1f} %)"
                 for k, v in sorted(c.phase_s.items(), key=lambda kv: -kv[1])))
             log(f"    sum of phases {total:.3f} s = {total / wall:.3f} of "
-                f"the wall")
+                f"the wall; the shares before the beam and prune kernels "
+                f"(PERF.md): " + ", ".join(f"{k} {v} %" for k, v in
+                                           EARLIER_SHARES.items()))
         if c.nodes_inserted != given or c.rounds != want_rounds:
             raise AssertionError(f"{what}: counters {c} against {given} "
                                  f"rows and {want_rounds} rounds")
@@ -1974,6 +2166,7 @@ def phase_13(rows: np.ndarray, queries: np.ndarray, basis, seed: int,
 
     cap = bucket_capacity(n_all)
     graphs, walls = {}, {}
+    reset_counts()
     try:
         for profile in (False, True):
             builder_mod.BUILD_PROFILE = profile
@@ -1998,6 +2191,11 @@ def phase_13(rows: np.ndarray, queries: np.ndarray, basis, seed: int,
                PROF_ADD, -(-PROF_ADD // b.batch_size))
     finally:
         builder_mod.BUILD_PROFILE = False
+    launches["graph_build"] = kernel_counts()
+    log(f"  launches over the builds and add_nodes: {launches['graph_build']}")
+    if min(launches["graph_build"][k] for k in BUILD_KERNELS) <= 0:
+        raise AssertionError(f"the graph builds did not launch both "
+                             f"{BUILD_KERNELS}")
     log(f"  the profile's cost: unprofiled wall {walls[False]:.3f} s, "
         f"profiled {walls[True]:.3f} s "
         f"({walls[True] / walls[False]:.3f}x); identical adjacency "
@@ -2012,10 +2210,41 @@ def phase_13(rows: np.ndarray, queries: np.ndarray, basis, seed: int,
     if r_all < RECALL_TARGET:
         raise AssertionError(f"recall@{K} after add_nodes {r_all} < "
                              f"{RECALL_TARGET}")
-    del x, graphs, merged
+    # beam_search against its plain version on the built graph: one insert
+    # round's batch (rows not in the graph, the builder's parameters) and
+    # the beam tier's 512-query batches at ef_search 100 and 200
+    g = graphs[False]
+    e = builder_mod.CONSTRUCTION_EXPANSIONS
+    iters = -(-PROF_BEAM // e) + 8
+    batch = x[n: n + 16_384]
+    rec = check_beam_search(
+        "insert round", g.adjacency, g.entry,
+        searcher_mod.ExactProvider(batch, x, simf), batch.shape[0],
+        PROF_BEAM, e, iters, reps=5, plain_reps=2)
+    for ef in (100, BEAM_EF):
+        p = searcher_mod.SearchParams(k=K, ef_search=ef)
+        check_beam_search(
+            f"beam tier ef_search {ef}", g.adjacency, g.entry,
+            searcher_mod.ExactProvider(q[:BATCH], x, simf), BATCH,
+            max(ef, K * p.overquery_factor), p.expansions_per_iter,
+            p.resolved_iters(), reps=5, plain_reps=2)
+    # the bf16 instantiations at the quantized build's shapes (phase 12:
+    # rounds of QB_BATCH over bf16 decoded rows), here over a bf16 copy of
+    # the rows: the walk through the decoded-cache provider and the prune
+    xb = x.bfloat16()
+    recs = {"beam_search": rec}
+    recs["beam_search_bf16"] = check_beam_search(
+        "insert round, bf16 rows", g.adjacency, g.entry,
+        searcher_mod.PQDecodedProvider(batch[:QB_BATCH], xb, simf), QB_BATCH,
+        PROF_BEAM, e, iters, reps=5, plain_reps=2)
+    recs["robust_prune_bf16"] = check_robust_prune(
+        xb[:n], QB_BATCH, PROF_BEAM + PROF_DEGREE, seed + 23, reps=10,
+        plain_reps=2, what="bf16")
+    del x, xb, graphs, merged, g, batch
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  phase 13: {time.monotonic() - t_phase:.1f} s")
+    return recs
 
 
 def main() -> int:
@@ -2071,7 +2300,8 @@ def main() -> int:
 
     # ---- 2. build ----------------------------------------------------------
     t0 = time.monotonic()
-    names = ("adc_scan", "decode_scan", "vector_store")
+    names = ("adc_scan", "decode_scan", "beam_search", "robust_prune",
+             "vector_store")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(_kernels.build, names)))
     log(f"[2/13] build: {', '.join(p.name for p in libs.values())} in "
@@ -2125,6 +2355,16 @@ def main() -> int:
                                                       dsub),
                                (BATCH, 1 << 18, m, 256, DIM // m)]):
         check_decode_scan(*shape, args.seed + 3 + i, reps=5, plain_reps=2)
+    # robust_prune at the build's insert round (B = 16,384 of a 250,000-row
+    # corpus, C = beam 100 + 32 intra-round candidates) and its overflow
+    # prune's width (C = cap_deg 38 + 32 extras)
+    prows = torch.as_tensor(make_data(np.random.default_rng(args.seed + 20),
+                                      PROF_N, 1, DIM)[0], device="cuda")
+    prune_rec = check_robust_prune(prows, 16_384, PROF_BEAM + PROF_DEGREE,
+                                   args.seed + 21, reps=10, plain_reps=2)
+    check_robust_prune(prows, 16_384, 70, args.seed + 22, reps=10,
+                       plain_reps=2)
+    del prows
     if args.compare_decode_scan is not None:
         compare_decode_scan(args.compare_decode_scan,
                             [(BATCH, 1 << 20, GIST_M, 256, dsub),
@@ -2148,6 +2388,7 @@ def main() -> int:
     index = VectorIndex(root, DiskAnnConfig(dim=DIM), device="cuda")
     bounds = np.linspace(0, args.n, FLUSHES + 1).astype(int)
     plain_pq_ms = None
+    reset_counts()
     for lo, hi in zip(bounds[:-1], bounds[1:]):
         before = index.stats.snapshot()
         t0 = time.monotonic()
@@ -2164,11 +2405,16 @@ def main() -> int:
             f"graph build {build_ms} ms; PERF.md records ~"
             f"{EARLIER_FLUSH_VEC_S} vec/s)")
         plain_pq_ms = pq_ms if plain_pq_ms is None else plain_pq_ms
+    launches["in_memory_build"] = kernel_counts()
+    log(f"  launches over the flushes: {launches['in_memory_build']}")
+    if min(launches["in_memory_build"][k] for k in BUILD_KERNELS) <= 0:
+        raise AssertionError(f"the graph builds did not launch both "
+                             f"{BUILD_KERNELS}")
 
     index.search(queries[: BATCH], sc)  # warm: segment loads
-    adc_scan.launches = decode_scan.launches = 0
+    reset_counts()
     ids, scores, wall = search_all(index, queries, sc)
-    launches["in_memory"] = kernel_counts(adc_scan, decode_scan)
+    launches["in_memory"] = kernel_counts()
     peak = torch.cuda.max_memory_allocated()
     gt = ground_truth_topk(
         torch.as_tensor(queries, device="cuda"),
@@ -2260,7 +2506,7 @@ def main() -> int:
             if rung == "codes_only":
                 limit = tight_breaker_limit(GLOBAL_SETTINGS, BREAKER)
             torch.cuda.reset_peak_memory_stats()
-            adc_scan.launches = decode_scan.launches = 0
+            reset_counts()
             index.search(gq[:BATCH], sc)  # warm: caches, allocator
             ids, _, wall = search_all(index, gq, sc)
             deep_ids, _, deep_wall = search_all(index, gq, deep)
@@ -2277,7 +2523,7 @@ def main() -> int:
                 lut_recall = recall_at_k(small.doc_ids, gt[:LUT_BATCH], K)
                 fused_recall = recall_at_k(deep_ids[:LUT_BATCH],
                                            gt[:LUT_BATCH], K)
-            launches[f"gist_{rung}"] = kernel_counts(adc_scan, decode_scan)
+            launches[f"gist_{rung}"] = kernel_counts()
             peak = torch.cuda.max_memory_allocated()
             recall_default = recall_at_k(ids, gt, K)
             recall = recall_at_k(deep_ids, gt, K)
@@ -2364,6 +2610,7 @@ def main() -> int:
     index = VectorIndex(root, DiskAnnConfig(dim=DIM, mode="on_disk"),
                         device="cuda")
     lo = 0
+    reset_counts()
     for count in VAMANA_FLUSHES:
         t0 = time.monotonic()
         index.add_batch(np.arange(lo, lo + count), vv[lo: lo + count])
@@ -2375,6 +2622,8 @@ def main() -> int:
             f"{count / dt:.0f} vec/s, capacity {cap} "
             f"({'beam' if cap > 1 << 18 else 'scan'} tier)")
         lo += count
+    launches["vamana_build"] = kernel_counts()
+    log(f"  launches over the flushes: {launches['vamana_build']}")
     index.close()
     first = None
     for rung in ("default", "tight"):
@@ -2383,11 +2632,11 @@ def main() -> int:
             index._reader(n_)  # load before the breaker tightens
         if rung == "tight":
             tight_breaker_limit(GLOBAL_SETTINGS, BREAKER)
-        adc_scan.launches = decode_scan.launches = 0
+        reset_counts()
         before = index.stats.snapshot()
         ids, _, wall = search_all(index, vq, sc)
         after = index.stats.snapshot()
-        launches[f"vamana_{rung}"] = kernel_counts(adc_scan, decode_scan)
+        launches[f"vamana_{rung}"] = kernel_counts()
         expanded = (after[Counter.KNN_QUERY_EXPANDED_NODES.value]
                     - before[Counter.KNN_QUERY_EXPANDED_NODES.value])
         recall = recall_at_k(ids, gt, K)
@@ -2448,9 +2697,9 @@ def main() -> int:
     rows_dev = torch.as_tensor(rows, device="cuda")
     truth = live_truth(queries, rows, np.nonzero(live)[0], K)
     index.search(queries[:BATCH], sc)  # warm: the masks follow
-    adc_scan.launches = decode_scan.launches = 0
+    reset_counts()
     ids, scores, wall = search_all(index, queries, sc)
-    launches["in_memory_deleted"] = kernel_counts(adc_scan, decode_scan)
+    launches["in_memory_deleted"] = kernel_counts()
     recall = check_live_answers("after the deletes", ids, scores, queries,
                                 rows_dev, doomed, truth, K)
     log(f"  search with {n_del} tombstones in the fused valid masks: "
@@ -2471,7 +2720,7 @@ def main() -> int:
     before = index.stats.snapshot()
     index.add_batch(np.concatenate([np.arange(n, n + n_new), upd_ids]),
                     np.concatenate([rows[n:], upd_rows]))
-    adc_scan.launches = decode_scan.launches = 0
+    reset_counts()
     t0 = time.monotonic()
     name5 = index.flush()
     flush_s = time.monotonic() - t0
@@ -2502,8 +2751,7 @@ def main() -> int:
     index.await_merges()
     torch.cuda.synchronize()
     merge_wall = time.monotonic() - t0 - flush_s
-    launches["in_memory_during_merge"] = kernel_counts(adc_scan,
-                                                       decode_scan)
+    launches["in_memory_during_merge"] = kernel_counts()
     after = index.stats.snapshot()
     merge_ms = (after[Counter.KNN_GRAPH_MERGE_TIME.value]
                 - before[Counter.KNN_GRAPH_MERGE_TIME.value])
@@ -2548,10 +2796,10 @@ def main() -> int:
         return ids
 
     index.search(queries[:BATCH], sc)  # warm
-    adc_scan.launches = decode_scan.launches = 0
+    reset_counts()
     stats0 = index.stats.snapshot()
     search_both("after the merge (beam tier + scan tier)")
-    launches["in_memory_merged"] = kernel_counts(adc_scan, decode_scan)
+    launches["in_memory_merged"] = kernel_counts()
     expanded = (index.stats.snapshot()[
         Counter.KNN_QUERY_EXPANDED_NODES.value]
         - stats0[Counter.KNN_QUERY_EXPANDED_NODES.value])
@@ -2571,10 +2819,9 @@ def main() -> int:
         f"has_deletes {index.has_deletes}")
     if index.segment_names != [forced] or index.has_deletes:
         raise AssertionError("force_merge left tombstones or segments")
-    adc_scan.launches = decode_scan.launches = 0
+    reset_counts()
     ids = search_both("after force_merge (one beam-tier segment)")
-    launches["in_memory_force_merged"] = kernel_counts(adc_scan,
-                                                       decode_scan)
+    launches["in_memory_force_merged"] = kernel_counts()
     index.close()
     again = VectorIndex(sift_dir, device="cuda")
     same = bool((again.search(queries[:BATCH], deep).doc_ids
@@ -2626,13 +2873,13 @@ def main() -> int:
                 idx._reader(n_)  # load before the breaker tightens
             if rung == "tight":
                 tight_breaker_limit(GLOBAL_SETTINGS, BREAKER)
-            adc_scan.launches = decode_scan.launches = 0
+            reset_counts()
             try:
                 ids, _, wall = search_all(idx, vq, sc)
             finally:
                 GLOBAL_SETTINGS.put("knn.memory.circuit_breaker.limit",
                                     50.0)
-            counts = kernel_counts(adc_scan, decode_scan)
+            counts = kernel_counts()
             launches[f"vamana_{tag}_{rung}"] = counts
             recall = recall_at_k(ids, truth, K)
             log(f"  {tag}, {rung} breaker: "
@@ -2701,11 +2948,12 @@ def main() -> int:
     phase_9c(args.seed, launches, plain_pq_ms)
 
     # ---- 13. the graph build profile ---------------------------------------
-    phase_13(prof_rows, prof_queries, basis, args.seed, smi)
+    build_recs = phase_13(prof_rows, prof_queries, basis, args.seed, smi,
+                          launches)
     del prof_rows, prof_queries
 
     total = {k: sum(v[k] for v in launches.values())
-             for k in ("adc_scan", "decode_scan")}
+             for k in kernel_counts()}
     log(f"launches by path: {launches}")
     log(f"routing crossover (decode_scan ms, adc_scan ms): {crossover}")
     print(json.dumps({"kernels": [
@@ -2718,6 +2966,26 @@ def main() -> int:
          "replaces":
              "opensearch_jvector_tpu/ops/pallas/pq_scan_kernel.py:112",
          "launches": total["decode_scan"], **dec_rec},
+        {"name": "beam_search", "route": "cuda",
+         "source": "opensearch_jvector_tpu_torch/csrc/beam_search.cu",
+         "replaces": "opensearch_jvector_tpu/models/searcher.py:179",
+         "launches": total["beam_search"], **build_recs["beam_search"]},
+        {"name": "robust_prune", "route": "cuda",
+         "source": "opensearch_jvector_tpu_torch/csrc/robust_prune.cu",
+         "replaces": "opensearch_jvector_tpu/models/builder.py:93",
+         "launches": total["robust_prune"], **prune_rec},
+        # the same kernels' bf16 instantiations (the quantized build's
+        # decoded rows); launches: those over bf16 rows
+        {"name": "beam_search (bf16 rows)", "route": "cuda",
+         "source": "opensearch_jvector_tpu_torch/csrc/beam_search.cu",
+         "replaces": "opensearch_jvector_tpu/models/searcher.py:179",
+         "launches": total["beam_search_bf16"],
+         **build_recs["beam_search_bf16"]},
+        {"name": "robust_prune (bf16 rows)", "route": "cuda",
+         "source": "opensearch_jvector_tpu_torch/csrc/robust_prune.cu",
+         "replaces": "opensearch_jvector_tpu/models/builder.py:93",
+         "launches": total["robust_prune_bf16"],
+         **build_recs["robust_prune_bf16"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -28,6 +28,14 @@ as it is, and every prune, bootstrap and cleanup site upcasts the rows it
 gathers, never the corpus. With `hierarchy_enabled`, `cleanup` adds the
 coarse upper layer (`_build_upper_layer`).
 
+The two compiled loops of the reference's build each run as one launch of
+a hand-written CUDA kernel on a CUDA device: the insert rounds' beam walk
+(`models/searcher.beam_search` over `ops/beam_kernel.py`) and every
+alpha-robust prune (`ops/prune_kernel.robust_prune`, which reads the
+candidates' rows by id, so the [B, C, d] gather and the [B, C, C]
+distances stay off device memory); on the CPU both run their plain
+versions.
+
 `GraphIndexBuilder.counters` (`BuildCounters`) counts insert rounds and
 inserted nodes. With `BUILD_PROFILE` on (`JVECTOR_TPU_BUILD_PROFILE=1` at
 import, or the module attribute set), every phase of an insert round and of
@@ -56,6 +64,7 @@ from opensearch_jvector_tpu_torch.ops.distances import (
     batched_candidate_scores,
     pairwise_scores,
 )
+from opensearch_jvector_tpu_torch.ops.prune_kernel import robust_prune
 
 NEG_INF = float("-inf")
 
@@ -103,61 +112,6 @@ def _scores_to_rows(row: torch.Tensor, vectors: torch.Tensor,
     """[1, d] float32 row against every row of `vectors` -> [n] scores."""
     return torch.cat([pairwise_scores(row, blk, simf)[0]
                       for _, blk in _float_blocks(vectors)])
-
-
-def _score_to_dist(scores: torch.Tensor,
-                   simf: SimilarityFunction) -> torch.Tensor:
-    """Map similarity scores to a pruning distance (lower = closer)."""
-    if simf is SimilarityFunction.EUCLIDEAN:
-        # score = 1/(1+d2)  ->  d2 = 1/score - 1; sqrt for a true metric
-        return torch.sqrt(torch.clamp(
-            1.0 / torch.clamp(scores, min=1e-30) - 1.0, min=0.0))
-    return 1.0 - scores
-
-
-def robust_prune_batch(
-    point_vecs: torch.Tensor,  # [B, d] the nodes being pruned for
-    cand_ids: torch.Tensor,  # [B, C] candidate ids (-1 pad)
-    cand_vecs: torch.Tensor,  # [B, C, d]
-    cand_scores: torch.Tensor,  # [B, C] similarity to point (-inf pad)
-    alpha: float,
-    m_out: int,
-    simf: SimilarityFunction,
-    point_ids: torch.Tensor | None = None,  # [B] to mask self-candidates
-) -> torch.Tensor:
-    """Vectorized alpha-robust-prune -> selected ids [B, m_out] (-1 pad).
-
-    DiskANN rule: repeatedly take the closest unpruned candidate c*, then
-    prune every c with alpha * d(c*, c) < d(p, c). The inequality is
-    strict so that duplicate vectors (distance 0) stay selectable.
-    """
-    b, c = cand_ids.shape
-    dev = cand_ids.device
-    d_p = _score_to_dist(cand_scores.float(), simf)  # [B, C]
-    cand_vecs = cand_vecs.float()
-    d_cc = _score_to_dist(pairwise_scores(cand_vecs, cand_vecs, simf),
-                          simf)  # [B, C, C]
-
-    # keep only the first occurrence of each candidate id
-    eq = (cand_ids[:, :, None] == cand_ids[:, None, :]) & (
-        cand_ids[:, :, None] >= 0)
-    lower = torch.tril(torch.ones((c, c), dtype=torch.bool, device=dev), -1)
-    alive = (cand_ids >= 0) & ~torch.any(eq & lower, dim=2)
-    if point_ids is not None:
-        alive &= cand_ids != point_ids[:, None]
-
-    rows = torch.arange(b, device=dev)
-    selected = torch.full((b, m_out), -1, dtype=torch.long, device=dev)
-    inf = float("inf")
-    for t in range(m_out):
-        dp = torch.where(alive, d_p, inf)
-        i = torch.argmin(dp, dim=1)
-        ok = dp[rows, i] < inf
-        selected[:, t] = torch.where(ok, cand_ids[rows, i].long(), -1)
-        pruned = alpha * d_cc[rows, i] < d_p
-        alive = alive & ~pruned & ok[:, None]
-        alive[rows, i] = False
-    return selected
 
 
 def _nearest_hostable(ob: torch.Tensor, vectors: torch.Tensor,
@@ -401,8 +355,9 @@ class GraphIndexBuilder:
             scores = torch.where(
                 cand >= 0, batched_candidate_scores(pvecs, cvecs, simf),
                 NEG_INF)
-            sel = robust_prune_batch(pvecs, cand, cvecs, scores, self.alpha,
-                                     self.max_degree, simf, point_ids=ids_t)
+            del cvecs
+            sel = robust_prune(vectors, cand, scores, self.alpha,
+                               self.max_degree, simf, point_ids=ids_t)
             st.write_rows(ids_t, sel)
             st.deg[ids] = (sel >= 0).sum(1).cpu().numpy()
 
@@ -430,9 +385,8 @@ class GraphIndexBuilder:
             del rr
             cand_ids = torch.cat([cand_ids, batch_t[rr_idx]], dim=1)
             cand_scores = torch.cat([cand_scores, rr_scores], dim=1)
-        sel = robust_prune_batch(
-            queries, cand_ids, vectors[cand_ids.clamp(min=0)], cand_scores,
-            self.alpha, self.max_degree, simf, point_ids=batch_t)
+        sel = robust_prune(vectors, cand_ids, cand_scores, self.alpha,
+                           self.max_degree, simf, point_ids=batch_t)
         st.write_rows(batch_t, sel)
         live_dev[batch_t] = True
         self._phase_end("prune+fwd", t0, dev)
@@ -657,9 +611,8 @@ class GraphIndexBuilder:
         scores.fill_diagonal_(NEG_INF)
         cand_scores, idx = torch.topk(
             scores, min(len(ids) - 1, self.beam_width), dim=1)
-        sel_t = robust_prune_batch(
-            v, ids_t[idx], v[idx], cand_scores, self.alpha, self.max_degree,
-            simf, point_ids=ids_t)
+        sel_t = robust_prune(vectors, ids_t[idx], cand_scores, self.alpha,
+                             self.max_degree, simf, point_ids=ids_t)
         # forward rows, then reverse edges exactly like an insert round
         # (bidirectional links)
         st.write_rows(ids_t, sel_t)
@@ -804,9 +757,8 @@ class GraphIndexBuilder:
         top_scores, top_idx = torch.topk(scores, w, dim=1)
         top_cand = torch.gather(cand, 1, top_idx)
         top_cand = torch.where(top_scores > NEG_INF, top_cand, -1)
-        sel = robust_prune_batch(
-            pvecs, top_cand, vectors[top_cand.clamp(min=0)].float(),
-            top_scores, self.alpha, self.max_degree, simf, point_ids=ids)
+        sel = robust_prune(vectors, top_cand, top_scores, self.alpha,
+                           self.max_degree, simf, point_ids=ids)
         st.write_rows(ids, sel)
         return sel
 

@@ -31,10 +31,15 @@ build prunes on fp32 rows).
 Counters follow `SearchResult`: nodes scored (visited), nodes expanded on
 both layers, on the base layer alone, and candidates reranked.
 
-Deduplication of new neighbors against the pool, the visited ring and
-each other is one per-row sort instead of the reference's pairwise
-equality masks: [Q, L + V + E*M] keys rather than [Q, E*M, L + V] booleans,
-with the same result.
+The walk itself (`ops/beam_kernel.py`) is one launch of a hand-written
+CUDA kernel for the row providers (`exact` and `pq_decoded`, objects that
+expose their rows and prepared queries) on a CUDA device, where the
+reference runs one compiled `while_loop`; the codes providers (`pq`,
+`scalar`) and every CPU search walk in its plain version, a loop of tensor
+operations. There, deduplication of new neighbors against the pool, the
+visited ring and each other is one per-row sort instead of the
+reference's pairwise equality masks: [Q, L + V + E*M] keys rather than
+[Q, E*M, L + V] booleans, with the same result.
 """
 
 from __future__ import annotations
@@ -46,8 +51,11 @@ import torch
 
 from opensearch_jvector_tpu_torch.models.nvq import NVQVectors
 from opensearch_jvector_tpu_torch.models.scalar import thermometer_codes
+from opensearch_jvector_tpu_torch.ops import beam_kernel
+from opensearch_jvector_tpu_torch.ops.beam_kernel import _first_topk
 from opensearch_jvector_tpu_torch.ops.distances import (
     SimilarityFunction,
+    _normalize,
     batched_candidate_scores,
     hamming_scores,
 )
@@ -89,81 +97,91 @@ class SearchResult:
     expanded_base_count: torch.Tensor  # [Q] base layer only
 
 
-def _new_neighbors(nb: torch.Tensor, pool: torch.Tensor,
-                   visited: torch.Tensor) -> torch.Tensor:
-    """[Q, C] mask: nb >= 0, not in pool [Q, L], not in visited [Q, V],
-    and the first occurrence of its id within nb.
-
-    Sorts (id, column) keys per row with pool and visited columns first:
-    an nb entry survives iff it leads its id's run."""
-    x = torch.cat([pool, visited, nb], dim=1)
-    w = x.shape[1]
-    col = torch.arange(w, device=x.device)
-    key = torch.where(x >= 0, x * w + col, -1)
-    sk, order = torch.sort(key, dim=1)
-    sid = torch.where(sk >= 0, sk // w, -1)
-    lead = torch.ones_like(sid, dtype=torch.bool)
-    lead[:, 1:] = sid[:, 1:] != sid[:, :-1]
-    lead_x = torch.empty_like(lead).scatter_(1, order, lead)
-    return lead_x[:, w - nb.shape[1]:] & (nb >= 0)
-
-
 ScoreFn = Callable[[torch.Tensor], torch.Tensor]  # ids [Q, C] -> [Q, C]
 
 
-def _first_topk(x: torch.Tensor, k: int):
-    """Top-k along dim 1 where, among equal scores, the lower column wins
-    (a stable descending sort): the reference's `lax.top_k` order, which
-    `torch.topk` does not promise."""
-    s, i = torch.sort(x, dim=1, descending=True, stable=True)
-    return s[:, :k], i[:, :k]
+class RowProvider:
+    """A provider that scores candidate rows of a row matrix: callable as a
+    `ScoreFn`, and it exposes what the beam kernel
+    (`ops.beam_kernel.beam_search`) reads instead: `rows` [N, d] (float32,
+    or the bf16 decoded cache), `simf`, `rounded` (squared and inverse
+    norms are rounded to the rows' dtype) and `prepared()` -> (queries
+    [Q, d] float32 as the formula uses them, their squared norms [Q])."""
+
+    rows: torch.Tensor
+    simf: SimilarityFunction
+    rounded: bool = False
+
+    def prepared(self) -> tuple[torch.Tensor, torch.Tensor]:
+        raise NotImplementedError
+
+    def __call__(self, ids: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
 
 
-def exact_provider(queries: torch.Tensor, vectors: torch.Tensor,
-                   simf: SimilarityFunction) -> ScoreFn:
+class ExactProvider(RowProvider):
     """Exact scoring of candidate rows of `vectors` against `queries`."""
 
-    def score(ids: torch.Tensor) -> torch.Tensor:
-        return batched_candidate_scores(queries, vectors[ids.clamp(min=0)],
-                                        simf)
+    def __init__(self, queries: torch.Tensor, vectors: torch.Tensor,
+                 simf: SimilarityFunction):
+        self.queries, self.rows, self.simf = queries, vectors, simf
+        self._prepared = None
 
-    return score
+    def prepared(self):
+        if self._prepared is None:
+            q = self.queries
+            if self.simf is SimilarityFunction.COSINE:
+                q = _normalize(q)
+            self._prepared = (q, torch.sum(q * q, -1))
+        return self._prepared
+
+    def __call__(self, ids: torch.Tensor) -> torch.Tensor:
+        return batched_candidate_scores(
+            self.queries, self.rows[ids.clamp(min=0)], self.simf)
+
 
 
 def _to_cache_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype).float()
 
 
-def pq_decoded_provider(queries: torch.Tensor, decoded: torch.Tensor,
-                        simf: SimilarityFunction) -> ScoreFn:
+class PQDecodedProvider(RowProvider):
     """Scoring over the decoded cache (it holds the center): bf16 queries
     against bf16 rows, float32 products and sums. Squared norms (and, for
     cosine, inverse norms) are rounded to the cache dtype, as the
     reference's compiled program computes them; the rest stays float32."""
-    dt = decoded.dtype
 
-    def sq(x):  # rounded squared norm, keepdim
-        return _to_cache_dtype(torch.sum(x * x, -1, keepdim=True), dt)
-
-    def unit(x):
-        return x * _to_cache_dtype(torch.rsqrt(sq(x) + 1e-30), dt)
-
-    q = _to_cache_dtype(queries, dt)
-    if simf is SimilarityFunction.COSINE:
-        q = unit(q)
-    q2 = sq(q)
-
-    def score(ids: torch.Tensor) -> torch.Tensor:
-        c = decoded[ids.clamp(min=0)].float()  # [Q, C, d]
+    def __init__(self, queries: torch.Tensor, decoded: torch.Tensor,
+                 simf: SimilarityFunction):
+        self.rows, self.simf = decoded, simf
+        self.rounded = decoded.dtype != torch.float32
+        q = _to_cache_dtype(queries, decoded.dtype)
         if simf is SimilarityFunction.COSINE:
-            c = unit(c)
-        dot = torch.bmm(c, q.unsqueeze(-1)).squeeze(-1)
-        if simf is SimilarityFunction.EUCLIDEAN:
-            d2 = torch.clamp(q2 + sq(c).squeeze(-1) - 2.0 * dot, min=0.0)
+            q = self._unit(q)
+        self.q, self.q2 = q, self._sq(q)
+
+    def _sq(self, x):  # rounded squared norm, keepdim
+        return _to_cache_dtype(torch.sum(x * x, -1, keepdim=True),
+                               self.rows.dtype)
+
+    def _unit(self, x):
+        return x * _to_cache_dtype(torch.rsqrt(self._sq(x) + 1e-30),
+                                   self.rows.dtype)
+
+    def prepared(self):
+        return self.q, self.q2[:, 0]
+
+    def __call__(self, ids: torch.Tensor) -> torch.Tensor:
+        c = self.rows[ids.clamp(min=0)].float()  # [Q, C, d]
+        if self.simf is SimilarityFunction.COSINE:
+            c = self._unit(c)
+        dot = torch.bmm(c, self.q.unsqueeze(-1)).squeeze(-1)
+        if self.simf is SimilarityFunction.EUCLIDEAN:
+            d2 = torch.clamp(self.q2 + self._sq(c).squeeze(-1) - 2.0 * dot,
+                             min=0.0)
             return 1.0 / (1.0 + d2)
         return (1.0 + dot) / 2.0
 
-    return score
 
 
 def pq_provider(queries: torch.Tensor, codes: torch.Tensor,
@@ -222,53 +240,21 @@ def beam_search(
     Returns (res_ids [Q,R] int64, res_scores [Q,R], visited [Q],
     expanded [Q]). Tombstoned nodes stay traversable (the reference's
     markNodeDeleted -> cleanup semantics); they are masked out of the
-    results through `accept & live`.
+    results through `accept & live`. A row provider (`ExactProvider`,
+    `PQDecodedProvider`) walks in the beam kernel (one launch on a CUDA
+    device, its plain version on the CPU); the codes providers walk in the
+    plain loop.
     """
-    dev = adjacency.device
-    m = adjacency.shape[1]
-    rows = torch.arange(q, device=dev)
+    if isinstance(score, RowProvider):
+        cand_ids, cand_scores, visited_n, expanded_n = beam_kernel.beam_search(
+            adjacency, entry, score, q, L, E, max_iters)
+    else:
+        cand_ids, cand_scores, visited_n, expanded_n = (
+            beam_kernel.beam_search_reference(
+                adjacency, entry, score, q, L, E, max_iters,
+                first_among_ties=first_among_ties))
     topk = _first_topk if first_among_ties else (
         lambda x, k: torch.topk(x, k, dim=1))
-
-    cand_ids = torch.full((q, L), -1, dtype=torch.long, device=dev)
-    cand_ids[:, 0] = entry
-    cand_scores = torch.full((q, L), NEG_INF, device=dev)
-    cand_scores[:, 0] = score(cand_ids[:, :1])[:, 0]
-    cand_expanded = torch.zeros((q, L), dtype=torch.bool, device=dev)
-    visited_buf = torch.full((q, max_iters * E), -1, dtype=torch.long,
-                             device=dev)
-    visited_n = torch.ones((q,), dtype=torch.int32, device=dev)
-    expanded_n = torch.zeros((q,), dtype=torch.int32, device=dev)
-    active = torch.ones((q,), dtype=torch.bool, device=dev)
-
-    it = 0
-    while it < max_iters and bool(active.any()):
-        # ---- pick top-E unexpanded candidates per query ----------------
-        pickable = ~cand_expanded & (cand_ids >= 0)
-        top_s, slots = topk(torch.where(pickable, cand_scores, NEG_INF), E)
-        picked_ids = torch.gather(cand_ids, 1, slots)
-        q_active = active & (top_s[:, 0] > NEG_INF)
-        picked_valid = (top_s > NEG_INF) & q_active[:, None]
-        cand_expanded[rows[:, None], slots] |= picked_valid
-        visited_buf[:, it * E:(it + 1) * E] = torch.where(
-            picked_valid, picked_ids, -1)
-        expanded_n += picked_valid.sum(1, dtype=torch.int32)
-
-        # ---- gather + dedup neighbors ----------------------------------
-        nb = adjacency[picked_ids.clamp(min=0)].long()  # [Q, E, M]
-        nb = torch.where(picked_valid[:, :, None], nb, -1).reshape(q, E * m)
-        nb_valid = _new_neighbors(nb, cand_ids, visited_buf)
-        nb = torch.where(nb_valid, nb, -1)
-
-        # ---- score new candidates, merge into the pool (top-L) ---------
-        nb_scores = torch.where(nb_valid, score(nb), NEG_INF)
-        visited_n += nb_valid.sum(1, dtype=torch.int32)
-        cand_scores, idx = topk(torch.cat([cand_scores, nb_scores], 1), L)
-        cand_ids = torch.gather(torch.cat([cand_ids, nb], 1), 1, idx)
-        cand_expanded = torch.gather(
-            torch.cat([cand_expanded, torch.zeros_like(nb_valid)], 1), 1, idx)
-        active = q_active
-        it += 1
 
     # ---- results: accepted & live top-R of the pool ---------------------
     if masked_results:
@@ -322,7 +308,7 @@ def search(
     ties = False
     if pq_decoded is not None or pq_codes is not None:
         if pq_decoded is not None:
-            score = pq_decoded_provider(queries, pq_decoded, simf)
+            score = PQDecodedProvider(queries, pq_decoded, simf)
         else:
             score = pq_provider(queries, pq_codes, pq_codebooks, pq_center,
                                 simf)
@@ -337,7 +323,7 @@ def search(
         ties = True  # a few hundred distinct scores at most
         rerank_src = lambda ids: vectors[ids]  # noqa: E731
     else:
-        score = exact_provider(queries, vectors, simf)
+        score = ExactProvider(queries, vectors, simf)
     masked_results = (accept is not None) or has_tombstones
     if accept is None:
         accept = live

@@ -89,7 +89,7 @@ def sharded_search(mesh, adjacency, live, entries, vectors, queries,
         liv = live[s].to(dev)
         ids, scores, _, _ = searcher_mod.beam_search(
             adjacency[s].to(dev), liv, int(entries[s]),
-            searcher_mod.exact_provider(q, vectors[s].to(dev), simf),
+            searcher_mod.ExactProvider(q, vectors[s].to(dev), simf),
             q.shape[0], liv if accept is None else accept[s].to(dev),
             L=ef, E=e, R=r, max_iters=iters)
         top_s, top_i = topk_scores(scores, ids, params.k)

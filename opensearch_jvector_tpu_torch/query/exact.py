@@ -20,7 +20,7 @@ import torch
 
 from opensearch_jvector_tpu_torch.index.reader import _blocked_scan_topr
 from opensearch_jvector_tpu_torch.index.segment import Segment
-from opensearch_jvector_tpu_torch.models.searcher import _first_topk
+from opensearch_jvector_tpu_torch.ops.beam_kernel import _first_topk
 from opensearch_jvector_tpu_torch.ops.distances import (
     SimilarityFunction,
     exact_scores,

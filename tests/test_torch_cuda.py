@@ -812,3 +812,424 @@ def test_ground_truth_stream_on_card_equals_the_scan(card):
             q, ((s, v[s: s + 4096]) for s in range(0, 20_000, 4096)), 10,
             simf)
         np.testing.assert_array_equal(got, want)
+
+
+# -- the graph build's two loops: beam walk and robust prune -----------------
+
+def _walk_graph(card, n, d, m, seed):
+    """A navigable graph over n latent rows on the card: each row's m - 4
+    nearest rows, two random links and two -1 slots (ragged rows)."""
+    from opensearch_jvector_tpu_torch.ops.distances import pairwise_sqdist
+
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(_latent(rng, n, d), device=card)
+    near = torch.cat([torch.topk(pairwise_sqdist(x[s: s + 4096], x), m - 3,
+                                 largest=False).indices[:, 1:]
+                      for s in range(0, n, 4096)])
+    rand = torch.as_tensor(rng.integers(0, n, (n, 2)), device=card)
+    pad = torch.full((n, 2), -1, device=card, dtype=torch.long)
+    adj = torch.cat([near, rand, pad], 1).to(torch.int32).contiguous()
+    return x, adj, torch.as_tensor(_latent(rng, 512, d), device=card)
+
+
+def _provider(queries, x, dtype, simf):
+    from opensearch_jvector_tpu_torch.models import searcher as tsearcher
+
+    if dtype == "bf16":
+        return tsearcher.PQDecodedProvider(queries, x.bfloat16(), simf)
+    return tsearcher.ExactProvider(queries, x, simf)
+
+
+def _hold_walk(adj, entry, prov, q, L, E, iters, launches=1):
+    """The kernel's walk against the plain one: where the plain walk has
+    no near tie (beam_kernel.kernel_error_bound), the same pool as a set,
+    scores within the bound, the same counters; elsewhere the pools
+    overlap almost wholly. Returns the kernel's outputs."""
+    from opensearch_jvector_tpu_torch.ops import beam_kernel
+
+    before = beam_kernel.beam_search.launches
+    got = beam_kernel.beam_search(adj, entry, prov, q, L, E, iters)
+    torch.cuda.synchronize()
+    assert beam_kernel.beam_search.launches == before + launches
+    ids, scores, vis, exp, near, bound = beam_kernel.beam_search_reference(
+        adj, entry, prov, q, L, E, iters,
+        tie_bound=lambda i: beam_kernel.kernel_error_bound(prov, i))
+    gi, gs, gv, ge = got
+    assert gi.shape == (q, L) and gs.shape == (q, L)
+    si, so = torch.sort(gi, 1)
+    ri, ro = torch.sort(ids, 1)
+    same = (si == ri).all(1) & (gv == vis) & (ge == exp)
+    assert bool(same[~near].all()), (int((~same & ~near).sum()), q)
+    gs_s, rs_s = torch.gather(gs, 1, so), torch.gather(scores, 1, ro)
+    rb = torch.gather(bound, 1, ro)
+    real = (ri >= 0) & same[:, None]
+    assert bool(((gs_s - rs_s).abs() <= rb)[real].all())
+    overlap = np.mean([len(np.intersect1d(a[a >= 0], b[b >= 0]))
+                       / max(1, (b >= 0).sum())
+                       for a, b in zip(gi.cpu().numpy(), ids.cpu().numpy())])
+    assert overlap >= 0.98 and float(same.float().mean()) >= 0.8, (
+        overlap, float(same.float().mean()), float(near.float().mean()))
+    return got
+
+
+# (Q, L, E, M, d, rows, simf, per-query entries): the build's insert round,
+# the beam tier at ef 200, the hierarchy descent, L not a multiple of 32,
+# the on_disk segment's L = 4,000 at overquery 20, d = 960, degree 48's
+# cap_deg 57, bf16 rows (the decoded cache), all three similarities, and
+# k = 1,000 at overquery 5 (L = 5,000, shared memory) and 10 (L = 10,000,
+# past a block's shared memory: the state in a device-memory workspace)
+WALK_SHAPES = [
+    (512, 100, 8, 38, 128, "f32", "EUCLIDEAN", False),
+    (256, 200, 16, 38, 128, "bf16", "EUCLIDEAN", True),
+    (64, 16, 4, 16, 128, "f32", "COSINE", True),
+    (200, 37, 4, 57, 960, "bf16", "COSINE", False),
+    (8, 4000, 16, 57, 128, "f32", "DOT_PRODUCT", False),
+    (96, 77, 16, 57, 960, "f32", "EUCLIDEAN", True),
+    (128, 100, 8, 38, 100, "bf16", "DOT_PRODUCT", False),
+    (64, 45, 8, 38, 36, "f32", "COSINE", False),
+    (32, 5000, 16, 38, 128, "f32", "EUCLIDEAN", False),
+    (16, 10_000, 16, 38, 128, "bf16", "COSINE", True),
+]
+
+
+@pytest.mark.parametrize("shape", WALK_SHAPES, ids=str)
+def test_beam_kernel_matches_plain(shape, card):
+    q, L, e, m, d, dtype, simf, per_query = shape
+    x, adj, queries = _walk_graph(card, 20_000, d, m, seed=sum(shape[:5]))
+    if simf == "DOT_PRODUCT":  # unit rows keep dot scores in [0, 1]
+        x = x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+    prov = _provider(queries[:q], x, dtype, SimilarityFunction[simf])
+    entry = (torch.as_tensor(np.random.default_rng(q).integers(0, 20_000, q),
+                             device=card) if per_query else 17)
+    iters = max(8, -(-L // e))
+    _hold_walk(adj, entry, prov, q, L, e, iters)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_beam_kernel_workspace_matches_plain(dtype, card, monkeypatch):
+    """The kernel with its state in device memory (forced at the insert
+    round's shape: no shared memory, a workspace of 8 queries a launch)
+    walks as the plain version does."""
+    from opensearch_jvector_tpu_torch.ops import beam_kernel
+
+    x, adj, queries = _walk_graph(card, 20_000, 128, 38, seed=15)
+    prov = _provider(queries[:64], x, dtype, SimilarityFunction.EUCLIDEAN)
+    monkeypatch.setattr(beam_kernel, "SMEM_LIMIT", 0)
+    monkeypatch.setattr(beam_kernel, "WORKSPACE_BYTES",
+                        8 * beam_kernel.beam_smem_bytes(100, 8, 38, 21, 128))
+    _hold_walk(adj, 3, prov, 64, 100, 8, 21, launches=8)
+
+
+def test_search_at_k_1000_through_the_kernel(card, monkeypatch):
+    """A user's search at k = 1,000 (L = 5,000; and 10,000 at overquery
+    10, past a block's shared memory) runs through the kernel: recall@1000
+    within 0.005 of the plain route's."""
+    from opensearch_jvector_tpu_torch.models import searcher as tsearcher
+    from opensearch_jvector_tpu_torch.ops import beam_kernel
+
+    x, adj, queries = _walk_graph(card, 20_000, 128, 38, seed=16)
+    q = queries[:32]
+    simf = SimilarityFunction.EUCLIDEAN
+    truth = ground_truth_topk(q, x, 1000, simf)
+    live = torch.ones(20_000, dtype=torch.bool, device=card)
+    recalls = {}
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            monkeypatch.setattr(beam_kernel, "beam_search",
+                                lambda a, e, p, q_, L, E, it:
+                                beam_kernel.beam_search_reference(
+                                    a, e, p, q_, L, E, it))
+        for over in (5, 10):
+            before = getattr(beam_kernel.beam_search, "launches", 0)
+            res = tsearcher.search(adj, live, 0, q, tsearcher.SearchParams(
+                k=1000, overquery_factor=over), simf, vectors=x)
+            assert res.ids.shape == (32, 1000)
+            if route == "kernel":
+                assert beam_kernel.beam_search.launches == before + 1
+            recalls[route, over] = recall_at_k(res.ids.cpu().numpy(), truth,
+                                               1000)
+    for over in (5, 10):
+        assert abs(recalls["kernel", over] - recalls["plain", over]) <= (
+            0.005), recalls
+
+
+def test_beam_kernel_readmits_an_evicted_node(card):
+    """With a small pool, nodes scored once are evicted and reached again
+    through later expansions: the plain walk scores them twice (dedup is
+    against the current pool, not every node seen), and so does the
+    kernel."""
+    from opensearch_jvector_tpu_torch.ops import beam_kernel
+
+    x, adj, queries = _walk_graph(card, 20_000, 32, 24, seed=11)
+    prov = _provider(queries[:64], x, "f32", SimilarityFunction.EUCLIDEAN)
+    seen = [[] for _ in range(64)]
+
+    def spy(ids):
+        for r, row in enumerate(ids.cpu().numpy()):
+            seen[r].extend(int(i) for i in row if i >= 0)
+        return prov(ids)
+
+    beam_kernel.beam_search_reference(adj, 5, spy, 64, 6, 4, 30)
+    again = [len(s) - len(set(s)) for s in seen]
+    assert sum(again) > 0
+    got = _hold_walk(adj, 5, prov, 64, 6, 4, 30)
+    assert any(int(got[2][r]) > len(set(seen[r])) for r in range(64))
+
+
+def test_beam_kernel_repeat_launches_are_identical(card):
+    from opensearch_jvector_tpu_torch.ops import beam_kernel
+
+    x, adj, queries = _walk_graph(card, 20_000, 128, 38, seed=12)
+    prov = _provider(queries, x, "bf16", SimilarityFunction.EUCLIDEAN)
+    first = beam_kernel.beam_search(adj, 3, prov, 512, 100, 8, 21)
+    second = beam_kernel.beam_search(adj, 3, prov, 512, 100, 8, 21)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_beam_search_results_with_tombstones_match_plain(card, monkeypatch):
+    """searcher.beam_search's accept/live mask and top-R over the kernel's
+    pool: tombstoned nodes are walked but never returned, and the results
+    equal the plain route's where no near tie (the top-R cut included)."""
+    from opensearch_jvector_tpu_torch.models import searcher as tsearcher
+    from opensearch_jvector_tpu_torch.ops import beam_kernel
+
+    x, adj, queries = _walk_graph(card, 20_000, 128, 38, seed=13)
+    live = torch.as_tensor(np.random.default_rng(13).random(20_000) > 0.2,
+                           device=card)
+    prov = _provider(queries, x, "f32", SimilarityFunction.EUCLIDEAN)
+    entries = torch.nonzero(live)[:512, 0]
+    args = (adj, live, entries, prov, 512, live)
+    kw = dict(L=100, E=16, R=50, max_iters=12)
+    ids, scores, vis, exp = tsearcher.beam_search(*args, **kw)
+    assert bool(live[ids.clamp(min=0)][ids >= 0].all())
+    monkeypatch.setattr(beam_kernel, "beam_search",
+                        lambda a, e, p, q, L, E, it:
+                        beam_kernel.beam_search_reference(a, e, p, q, L, E,
+                                                          it))
+    pids, pscores, pvis, pexp = tsearcher.beam_search(*args, **kw)
+    pool, pool_s, _, _, near, bound = beam_kernel.beam_search_reference(
+        adj, entries, prov, 512, 100, 16, 12,
+        tie_bound=lambda i: beam_kernel.kernel_error_bound(prov, i))
+    masked = torch.where(live[pool.clamp(min=0)] & (pool >= 0), pool_s,
+                         float("-inf"))
+    ok = ~near & ~beam_kernel._boundary_tie(masked, bound, 50)
+    assert float(ok.float().mean()) >= 0.5
+    assert torch.equal(torch.sort(ids[ok], 1).values,
+                       torch.sort(pids[ok], 1).values)
+    assert torch.equal(vis[ok], pvis[ok]) and torch.equal(exp[ok], pexp[ok])
+
+
+def test_beam_smem_bytes_match_the_kernel_layout(card):
+    from opensearch_jvector_tpu_torch.ops import beam_kernel
+
+    lib = beam_kernel._bind()
+    for shape in [(100, 8, 38, 21, 128), (4000, 16, 57, 250, 960),
+                  (16, 4, 16, 8, 128), (37, 4, 57, 10, 960),
+                  (1, 1, 1, 0, 1)]:
+        assert lib.beam_smem_bytes_c(*shape) == beam_kernel.beam_smem_bytes(
+            *shape)
+
+
+def test_beam_kernel_rejects_inputs_it_does_not_take(card):
+    from opensearch_jvector_tpu_torch.ops import beam_kernel
+
+    x, adj, queries = _walk_graph(card, 5000, 32, 16, seed=14)
+    prov = _provider(queries, x, "f32", SimilarityFunction.EUCLIDEAN)
+    with pytest.raises(ValueError, match="L=300000000"):
+        beam_kernel.beam_search(adj, 0, prov, 512, 300_000_000, 16, 600)
+    with pytest.raises(ValueError):
+        beam_kernel.beam_search(adj.long(), 0, prov, 512, 100, 8, 21)
+    with pytest.raises(ValueError):  # mixed devices never fall back
+        beam_kernel.beam_search(adj.cpu(), 0, prov, 512, 100, 8, 21)
+    with pytest.raises(ValueError):
+        beam_kernel.beam_search(adj, 0, prov, 100, 100, 8, 21)  # Q
+
+
+def _prune_case(card, b, c, d, dtype, simf, seed):
+    """Point rows and their C nearest corpus rows as candidates, with -1
+    pads, repeated ids, a duplicated vector and the point itself among
+    them; scores as the builder computes them."""
+    from opensearch_jvector_tpu_torch.ops.distances import (
+        batched_candidate_scores,
+        pairwise_sqdist,
+    )
+
+    rng = np.random.default_rng(seed)
+    n = 30_000
+    x = torch.as_tensor(_latent(rng, n, d), device=card)
+    x[7] = x[8]  # a duplicated vector
+    if simf is SimilarityFunction.DOT_PRODUCT:
+        x = x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+    rows = x.bfloat16() if dtype == "bf16" else x
+    pts = torch.as_tensor(rng.choice(n, b, replace=False), device=card)
+    ids = torch.topk(pairwise_sqdist(x[pts], x), c, largest=False).indices
+    ids[:, -5:] = -1
+    ids[:, 3] = ids[:, 1]  # a repeated id
+    ids[::7, 2] = pts[::7]  # the point itself
+    ids[::5, 4] = 7
+    ids[::5, 6] = 8
+    cand = torch.where(ids >= 0, ids, 0)
+    sc = batched_candidate_scores(rows[pts].float(), rows[cand].float(), simf)
+    sc = torch.where(ids >= 0, sc, float("-inf"))
+    return rows, ids, sc, pts
+
+
+# (B, C, d, rows, simf): the insert round, the overflow prune, the splice,
+# the bootstrap width, 256, d = 960, and the insert round at
+# ef_construction 256 and 512 (C = 288, 544; past 256 columns a thread
+# takes several)
+PRUNE_SHAPES = [(2048, 132, 128, "f32", "EUCLIDEAN"),
+                (1000, 70, 128, "bf16", "EUCLIDEAN"),
+                (777, 128, 960, "f32", "COSINE"),
+                (500, 100, 128, "f32", "DOT_PRODUCT"),
+                (300, 256, 64, "bf16", "COSINE"),
+                (64, 33, 960, "bf16", "EUCLIDEAN"),
+                (1000, 288, 128, "f32", "EUCLIDEAN"),
+                (400, 544, 128, "bf16", "DOT_PRODUCT")]
+
+
+def _hold_prune(rows, ids, sc, pts, simf, launches=1):
+    """The kernel's selections against the plain rule: each row a run of
+    the rule on the plain distances but for comparisons within
+    dcc_error_bound of equality (selection_margins share <= 1), most rows
+    the plain version's, never the point, every id once, bit-equal on a
+    repeat launch."""
+    from opensearch_jvector_tpu_torch.ops import prune_kernel
+
+    before = prune_kernel.robust_prune.launches
+    got = prune_kernel.robust_prune(rows, ids, sc, 1.2, 32, simf,
+                                    point_ids=pts)
+    torch.cuda.synchronize()
+    assert prune_kernel.robust_prune.launches == before + launches
+    want = prune_kernel.robust_prune_reference(
+        None, ids, rows[ids.clamp(min=0)].float(), sc, 1.2, 32, simf,
+        point_ids=pts)
+    _, share, _ = prune_kernel.selection_margins(rows, ids, sc, 1.2, simf,
+                                                 pts, got)
+    assert float(share.max()) <= 1.0, float(share.max())
+    same = (got == want).all(1)
+    assert float(same.float().mean()) >= 0.95
+    assert not bool((got == pts[:, None]).any())
+    for row in got.cpu().numpy():
+        sel = row[row >= 0]
+        assert sel.size > 0 and sel.size == np.unique(sel).size
+    again = prune_kernel.robust_prune(rows, ids, sc, 1.2, 32, simf,
+                                      point_ids=pts)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("shape", PRUNE_SHAPES, ids=str)
+def test_robust_prune_kernel_matches_plain(shape, card):
+    from opensearch_jvector_tpu_torch.ops import prune_kernel
+
+    b, c, d, dtype, simf = shape
+    simf = SimilarityFunction[simf]
+    rows, ids, sc, pts = _prune_case(card, b, c, d, dtype, simf, sum(shape[:3]))
+    _hold_prune(rows, ids, sc, pts, simf)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_robust_prune_kernel_workspace_matches_plain(dtype, card,
+                                                     monkeypatch):
+    """The kernel with its state in device memory (forced at the insert
+    round's width: no shared memory, a workspace of 256 rows a launch)
+    prunes as the plain version does."""
+    from opensearch_jvector_tpu_torch.ops import prune_kernel
+
+    simf = SimilarityFunction.EUCLIDEAN
+    rows, ids, sc, pts = _prune_case(card, 1000, 132, 128, dtype, simf, 17)
+    monkeypatch.setattr(prune_kernel, "SMEM_LIMIT", 0)
+    monkeypatch.setattr(prune_kernel, "WORKSPACE_BYTES",
+                        256 * prune_kernel.prune_smem_bytes(132, 128))
+    _hold_prune(rows, ids, sc, pts, simf, launches=4)
+
+
+def test_prune_smem_bytes_match_the_kernel_layout(card):
+    from opensearch_jvector_tpu_torch.ops import prune_kernel
+
+    lib = prune_kernel._bind()
+    for c, d in [(132, 128), (70, 128), (544, 960), (10_512, 16_000),
+                 (1, 1)]:
+        assert lib.prune_smem_bytes_c(c, d) == prune_kernel.prune_smem_bytes(
+            c, d)
+
+
+def test_robust_prune_kernel_rejects_inputs_it_does_not_take(card):
+    from opensearch_jvector_tpu_torch.ops import prune_kernel
+
+    rows = torch.randn((1000, 32), device=card)
+    ids = torch.randint(0, 1000, (8, 257), device=card)
+    sc = torch.rand((8, 257), device=card)
+    simf = SimilarityFunction.EUCLIDEAN
+    with pytest.raises(ValueError, match="point_ids"):
+        prune_kernel.robust_prune(rows, ids, sc, 1.2, 32, simf,
+                                  point_ids=ids[:, 0][:5])
+    with pytest.raises(ValueError):
+        prune_kernel.robust_prune(rows.double(), ids[:, :10], sc[:, :10],
+                                  1.2, 32, simf)
+    with pytest.raises(ValueError):  # mixed devices never fall back
+        prune_kernel.robust_prune(rows.cpu(), ids[:, :10], sc[:, :10], 1.2,
+                                  32, simf)
+
+
+def test_build_through_both_kernels_matches_the_plain_build(card,
+                                                            monkeypatch):
+    """A 20,000 x 128 build through the kernels: recall@10 within 0.005 of
+    the same build with both routes on their plain versions, degree <= the
+    bound, no self-loop, every live node reachable from the entry."""
+    _hold_build(card, monkeypatch, 20_000, 100)
+
+
+@pytest.mark.parametrize("beam", [256, 512])
+def test_wide_beam_build_through_both_kernels(beam, card, monkeypatch):
+    """The same at ef_construction 256 and 512 over 6,000 rows: the
+    insert rounds walk pools of 256 and 512 and prune 288 and 544
+    candidates."""
+    _hold_build(card, monkeypatch, 6_000, beam)
+
+
+def _hold_build(card, monkeypatch, n, beam):
+    from opensearch_jvector_tpu_torch.models import builder as tbuilder
+    from opensearch_jvector_tpu_torch.ops import beam_kernel, prune_kernel
+
+    rng = np.random.default_rng(30)
+    rows = _latent(rng, n, 128)
+    queries = _latent(rng, 512, 128)
+    x = torch.as_tensor(rows, device=card)
+    q = torch.as_tensor(queries, device=card)
+    simf = SimilarityFunction.EUCLIDEAN
+    truth = ground_truth_topk(q, x, 10, simf)
+
+    def build():
+        from opensearch_jvector_tpu_torch.models import searcher as tsearcher
+
+        b = tbuilder.GraphIndexBuilder(dim=128, max_degree=32,
+                                       beam_width=beam)
+        g = b.build(x, simf)
+        res = tsearcher.search(g.adjacency, g.live, g.entry, q,
+                               tsearcher.SearchParams(k=10), simf, vectors=x)
+        return g, recall_at_k(res.ids.cpu().numpy(), truth, 10)
+
+    launches = (beam_kernel.beam_search.launches,
+                prune_kernel.robust_prune.launches)
+    g, rec = build()
+    assert beam_kernel.beam_search.launches > launches[0]
+    assert prune_kernel.robust_prune.launches > launches[1]
+    adj = g.adjacency[:n].long()
+    assert int((adj >= 0).sum(1).max()) <= 32
+    assert not bool((adj == torch.arange(n, device=card)[:, None]).any())
+    assert bool(tbuilder._reachable(g.adjacency, g.live, g.entry)[:n].all())
+
+    def plain_prune(rows_, ids, sc, alpha, m_out, simf_, point_ids=None):
+        return prune_kernel.robust_prune_reference(
+            None, ids, rows_[ids.clamp(min=0)].float(), sc, alpha, m_out,
+            simf_, point_ids=point_ids)
+
+    monkeypatch.setattr(beam_kernel, "beam_search",
+                        lambda a, e, p, q_, L, E, it:
+                        beam_kernel.beam_search_reference(a, e, p, q_, L, E,
+                                                          it))
+    monkeypatch.setattr(tbuilder, "robust_prune", plain_prune)
+    _, plain_rec = build()
+    assert abs(rec - plain_rec) <= 0.005, (rec, plain_rec)
+    assert rec >= 0.95

@@ -184,11 +184,11 @@ def test_beam_search_takes_one_entry_per_query(jax_graph, corpus):
     live_ids = np.nonzero(np.asarray(jg.live))[0]
     entries = torch.as_tensor(live_ids[[3, 50, 99, 3, 200, 411]])
     args = dict(accept=g.live, L=32, E=4, R=10, max_iters=12)
-    score = tsearcher.exact_provider(queries, rows, EUCLID)
+    score = tsearcher.ExactProvider(queries, rows, EUCLID)
     ids, scores, visited, expanded = tsearcher.beam_search(
         g.adjacency, g.live, entries, score, 6, **args)
     for i in range(6):
-        one = tsearcher.exact_provider(queries[i: i + 1], rows, EUCLID)
+        one = tsearcher.ExactProvider(queries[i: i + 1], rows, EUCLID)
         ids1, scores1, visited1, expanded1 = tsearcher.beam_search(
             g.adjacency, g.live, int(entries[i]), one, 1, **args)
         assert torch.equal(ids[i], ids1[0])

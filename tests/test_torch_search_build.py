@@ -24,6 +24,7 @@ from opensearch_jvector_tpu.utils.ground_truth import (
 from opensearch_jvector_tpu_torch.convert import graph_from_numpy
 from opensearch_jvector_tpu_torch.models import builder as tbuilder
 from opensearch_jvector_tpu_torch.models import searcher as tsearcher
+from opensearch_jvector_tpu_torch.ops import beam_kernel, prune_kernel
 from opensearch_jvector_tpu_torch.ops.distances import SimilarityFunction
 
 torch.set_num_threads(2)
@@ -138,9 +139,9 @@ def test_new_neighbor_dedup_matches_pairwise_masks():
     pool = rng.integers(-1, 30, size=(5, 9))
     visited = rng.integers(-1, 30, size=(5, 7))
     nb = rng.integers(-1, 30, size=(5, 20))
-    got = tsearcher._new_neighbors(torch.from_numpy(nb),
-                                   torch.from_numpy(pool),
-                                   torch.from_numpy(visited)).numpy()
+    got = beam_kernel._new_neighbors(torch.from_numpy(nb),
+                                     torch.from_numpy(pool),
+                                     torch.from_numpy(visited)).numpy()
     for r in range(5):
         for j in range(20):
             x = nb[r, j]
@@ -165,7 +166,7 @@ def test_robust_prune_matches_jax():
             jnp.asarray(pv), jnp.asarray(ids), jnp.asarray(cv),
             jnp.asarray(jsc), 1.2, 8, simf.value,
             point_ids=jnp.asarray(pids)))
-        got = tbuilder.robust_prune_batch(
+        got = prune_kernel.robust_prune_reference(
             torch.from_numpy(pv), torch.from_numpy(ids).long(),
             torch.from_numpy(cv), torch.from_numpy(jsc), 1.2, 8, simf,
             point_ids=torch.from_numpy(pids).long()).numpy()
