@@ -33,6 +33,12 @@ class Counter(Enum):
     KNN_QUANTIZATION_TRAINING_TIME = "knn_quantization_training_time"
     KNN_FLUSH_COUNT = "knn_flush_count"
     KNN_MERGE_COUNT = "knn_merge_count"
+    # the flushes' graph builds: nodes inserted, and the rows scored and
+    # nodes expanded by their insert walks (the port's own; the reference's
+    # KNNCounter has no build work counts)
+    KNN_GRAPH_BUILD_NODES = "knn_graph_build_nodes"
+    KNN_GRAPH_BUILD_ROWS_SCORED = "knn_graph_build_rows_scored"
+    KNN_GRAPH_BUILD_EXPANDED_NODES = "knn_graph_build_expanded_nodes"
     # mesh-path state uploads (ShardedVectorIndex): each re-stack re-uploads
     # shard state to the mesh after the segment set changes; the time
     # counter records the stall so operators can see churn cost
@@ -52,15 +58,28 @@ class Counter(Enum):
 
 
 class StatsRegistry:
-    """Node-level counter registry; cluster aggregation sums registries."""
+    """Node-level counter registry; cluster aggregation sums registries.
+
+    Time-valued counters hold whole milliseconds (as the reference's stats
+    API reports them); `add_seconds` carries what a block adds below a
+    millisecond on to the next block, so many short blocks add up."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._counters: dict[str, int] = {c.value: 0 for c in Counter}
+        # per time-valued counter: nanoseconds below its last whole ms
+        self._carry_ns: dict[str, int] = {}
 
     def increment(self, counter: Counter, amount: int = 1) -> None:
         with self._lock:
             self._counters[counter.value] += int(amount)
+
+    def add_seconds(self, counter: Counter, seconds: float) -> None:
+        """Add `seconds` to the millisecond counter `counter`."""
+        with self._lock:
+            ns = self._carry_ns.get(counter.value, 0) + round(seconds * 1e9)
+            whole, self._carry_ns[counter.value] = divmod(ns, 1_000_000)
+            self._counters[counter.value] += whole
 
     def get(self, counter: Counter) -> int:
         with self._lock:
@@ -74,6 +93,7 @@ class StatsRegistry:
         with self._lock:
             for k in self._counters:
                 self._counters[k] = 0
+            self._carry_ns.clear()
 
     @contextmanager
     def timed(self, counter: Counter):
@@ -82,7 +102,7 @@ class StatsRegistry:
         try:
             yield
         finally:
-            self.increment(counter, int((time.monotonic() - t0) * 1000))
+            self.add_seconds(counter, time.monotonic() - t0)
 
     @staticmethod
     def aggregate(registries: list["StatsRegistry"]) -> dict[str, int]:

@@ -45,6 +45,7 @@ from opensearch_jvector_tpu_torch.index.scheduler import (
 )
 from opensearch_jvector_tpu_torch.index.segment import Segment, read_segment
 from opensearch_jvector_tpu_torch.index.writer import IndexWriter
+from opensearch_jvector_tpu_torch.utils.profiling import phase
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -53,6 +54,23 @@ def resolve_device(device: torch.device | str) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     return dev
+
+
+def _merge_topk(ids: list[np.ndarray], scores: list[np.ndarray],
+                k: int) -> tuple[np.ndarray, np.ndarray]:
+    """The segments' [Q, k_s] answers -> the global top k by score (stable:
+    a tie keeps the earlier segment's row), padded with -1 / -inf to k."""
+    all_ids = np.concatenate(ids, axis=1)
+    all_scores = np.concatenate(scores, axis=1)
+    order = np.argsort(-all_scores, axis=1, kind="stable")[:, :k]
+    top_ids = np.take_along_axis(all_ids, order, axis=1)
+    top_scores = np.take_along_axis(all_scores, order, axis=1)
+    if top_ids.shape[1] < k:
+        pad = k - top_ids.shape[1]
+        top_ids = np.pad(top_ids, ((0, 0), (0, pad)), constant_values=-1)
+        top_scores = np.pad(top_scores, ((0, 0), (0, pad)),
+                            constant_values=-np.inf)
+    return top_ids, top_scores
 
 
 def _segment_rows(seg: Segment, ords: np.ndarray) -> np.ndarray:
@@ -513,42 +531,37 @@ class VectorIndex:
 
     def search(self, queries, sc: SearchConfig,
                accept_docs=None) -> QueryResult:
-        """Search every segment, then merge into the global top-k."""
-        queries = np.atleast_2d(np.asarray(queries, np.float32))
-        qn = queries.shape[0]
-        ids, scores = [], []
-        visited = expanded = reranked = 0
-        # one snapshot of the segment set and its tombstones: merges swap
-        # both underneath, and tombstones ride the accept mask INTO the
-        # search so dead docs never consume the k result slots
-        for name, deleted in self.snapshot():
-            with self._pinned_reader(name) as reader:
-                res = reader.search(queries, sc, accept_docs=accept_docs,
-                                    deleted_docs=deleted)
-            ids.append(res.doc_ids)
-            scores.append(res.scores)
-            visited += res.visited
-            expanded += res.expanded
-            reranked += res.reranked
-        if not ids:
-            return QueryResult(
-                doc_ids=np.full((qn, sc.k), -1, np.int64),
-                scores=np.full((qn, sc.k), -np.inf, np.float32),
-                visited=0, expanded=0, reranked=0,
-            )
-        all_ids = np.concatenate(ids, axis=1)
-        all_scores = np.concatenate(scores, axis=1)
-        order = np.argsort(-all_scores, axis=1, kind="stable")[:, : sc.k]
-        top_ids = np.take_along_axis(all_ids, order, axis=1)
-        top_scores = np.take_along_axis(all_scores, order, axis=1)
-        if top_ids.shape[1] < sc.k:
-            pad = sc.k - top_ids.shape[1]
-            top_ids = np.pad(top_ids, ((0, 0), (0, pad)), constant_values=-1)
-            top_scores = np.pad(top_scores, ((0, 0), (0, pad)),
-                                constant_values=-np.inf)
-        return QueryResult(doc_ids=top_ids, scores=top_scores,
-                           visited=visited, expanded=expanded,
-                           reranked=reranked)
+        """Search every segment, then merge into the global top-k (spans
+        `index.search` around the call, `index.merge_topk` around the
+        merge)."""
+        with phase("index.search"):
+            queries = np.atleast_2d(np.asarray(queries, np.float32))
+            qn = queries.shape[0]
+            ids, scores = [], []
+            visited = expanded = reranked = 0
+            # one snapshot of the segment set and its tombstones: merges
+            # swap both underneath, and tombstones ride the accept mask
+            # INTO the search so dead docs never consume the k result slots
+            for name, deleted in self.snapshot():
+                with self._pinned_reader(name) as reader:
+                    res = reader.search(queries, sc, accept_docs=accept_docs,
+                                        deleted_docs=deleted)
+                ids.append(res.doc_ids)
+                scores.append(res.scores)
+                visited += res.visited
+                expanded += res.expanded
+                reranked += res.reranked
+            if not ids:
+                return QueryResult(
+                    doc_ids=np.full((qn, sc.k), -1, np.int64),
+                    scores=np.full((qn, sc.k), -np.inf, np.float32),
+                    visited=0, expanded=0, reranked=0,
+                )
+            with phase("index.merge_topk"):
+                top_ids, top_scores = _merge_topk(ids, scores, sc.k)
+            return QueryResult(doc_ids=top_ids, scores=top_scores,
+                               visited=visited, expanded=expanded,
+                               reranked=reranked)
 
 
     # -- merge ----------------------------------------------------------------

@@ -38,7 +38,6 @@ device like an in_memory one, with the decoded-PQ beam source.
 
 from __future__ import annotations
 
-import time
 from contextlib import contextmanager
 from pathlib import Path
 
@@ -100,16 +99,15 @@ def _elect_leading(segments: list[Segment]) -> int:
 
 @contextmanager
 def _stage(timings: dict | None, name: str, device: torch.device):
-    """With `timings`, add the stage's seconds (host clock, after the
-    device has drained) under `name`."""
-    if timings is None:
+    """The span `merge.<name>`; with `timings`, the stage's seconds (host
+    clock, after the device has drained) added under `name`."""
+    def add(dt: float) -> None:
+        timings[name] = timings.get(name, 0.0) + dt
+
+    with phase(f"merge.{name}", add_seconds=None if timings is None else add):
         yield
-        return
-    t0 = time.monotonic()
-    yield
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    timings[name] = timings.get(name, 0.0) + time.monotonic() - t0
+        if timings is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 class _Merge:
@@ -251,8 +249,7 @@ def merge_segments(
     timings: dict | None = None,  # filled with seconds per stage when given
 ) -> Path:
     """Merge segments into one; incremental when the guards allow."""
-    with phase("merge", stats=stats):
-        t0 = time.monotonic()
+    with phase("merge", Counter.KNN_GRAPH_MERGE_TIME, stats):
         assert segments, "nothing to merge"
         cfg = segments[0].config
         device = segments[0].device
@@ -299,8 +296,6 @@ def merge_segments(
             seg = _full_rebuild_merge(m, segments, lead, out_name)
         with m.stage("write"):
             path = write_segment(root, seg)
-        stats.increment(Counter.KNN_GRAPH_MERGE_TIME,
-                        int((time.monotonic() - t0) * 1000))
         stats.increment(Counter.KNN_MERGE_COUNT)
         return path
 

@@ -29,6 +29,11 @@ Port of `opensearch_jvector_tpu/index/reader.py`:
     codes-only `pq` provider when the cache is refused. Its three stages
     are profiler ranges (`approximate`, `rerank_gather`, `rerank_score`),
     so a trace splits a batch's host time between them.
+Every tier's host steps are spans (`utils/profiling.phase`): the queries'
+upload (`reader.upload`), the accept mask and beam sources
+(`reader.accept`), then inside `query` the work queued on the device
+(`reader.launch`) and the search's one wait for it (`reader.to_host`),
+and the doc-id lookup (`reader.docmap`).
 Top-r is exact at every width (the reference switches to `approx_max_k`
 above 2^18 on the TPU).
 """
@@ -37,12 +42,10 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-import time
 from pathlib import Path
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from opensearch_jvector_tpu_torch.api.config import SearchConfig
 from opensearch_jvector_tpu_torch.api.settings import GLOBAL_SETTINGS
@@ -289,8 +292,9 @@ class SegmentReader:
         deleted_docs=None,  # set of tombstoned doc ids (liveDocs analog)
     ) -> QueryResult:
         seg = self.seg
-        q_host = np.atleast_2d(np.asarray(queries, np.float32))
-        queries = torch.as_tensor(q_host, device=seg.device)
+        with phase("reader.upload"):
+            q_host = np.atleast_2d(np.asarray(queries, np.float32))
+            queries = torch.as_tensor(q_host, device=seg.device)
         qn = queries.shape[0]
         if seg.capacity() == 0:
             return QueryResult(
@@ -305,40 +309,47 @@ class SegmentReader:
             threshold=sc.threshold,
             rerank_floor=sc.rerank_floor,
         )
-        accept = self._accept(accept_docs, deleted_docs)
         filtered = accept_docs is not None
         flat = seg.config.index_type == "flat"
-        if seg.row_store is not None:  # on_disk: host-tier rerank
-            return self._tiered_search(queries, q_host, params, accept,
-                                       filtered, force_scan=flat)
         # scalar segments carry no PQ and NVQ segments' PQ codes are not
         # their rerank source, so neither takes the ADC scan; NVQ segments
         # scan their own decoded cache
-        if flat or ((seg.pqv is not None or seg.nvq is not None)
-                    and seg.capacity() <= self._scan_bound()):
+        beam = not (seg.row_store is not None or flat or (
+            (seg.pqv is not None or seg.nvq is not None)
+            and seg.capacity() <= self._scan_bound()))
+        with phase("reader.accept"):
+            accept = self._accept(accept_docs, deleted_docs)
+            sources = self._beam_sources() if beam else None
+        if seg.row_store is not None:  # on_disk: host-tier rerank
+            return self._tiered_search(queries, q_host, params, accept,
+                                       filtered, force_scan=flat)
+        if not beam:
             return self._scan_search(queries, params, accept, filtered)
 
-        t0 = time.monotonic()
-        with phase("query", stats=self.stats):
-            res = searcher_mod.search(
-                seg.graph.adjacency, seg.graph.live, seg.graph.entry,
-                queries, params, seg.config.similarity,
-                accept=accept, **self._beam_sources())
-            ids, scores, visited, expanded, base, reranked = _to_host(
-                res.ids, res.scores, res.visited_count.sum(),
-                res.expanded_count.sum(), res.expanded_base_count.sum(),
-                res.reranked_count.sum())
+        with phase("query", Counter.KNN_GRAPH_SEARCH_TIME, self.stats):
+            with phase("reader.launch"):
+                res = searcher_mod.search(
+                    seg.graph.adjacency, seg.graph.live, seg.graph.entry,
+                    queries, params, seg.config.similarity,
+                    accept=accept, **sources)
+            with phase("reader.to_host"):
+                ids, scores, visited, expanded, base, reranked = _to_host(
+                    res.ids, res.scores, res.visited_count.sum(),
+                    res.expanded_count.sum(), res.expanded_base_count.sum(),
+                    res.reranked_count.sum())
             visited, expanded, base, reranked = (
                 int(visited), int(expanded), int(base), int(reranked))
-        self.stats.increment(Counter.KNN_GRAPH_SEARCH_TIME,
-                             int((time.monotonic() - t0) * 1000))
         self._count(qn, filtered, visited, expanded, reranked, base)
-        doc_ids = seg.docmap.lookup_docs(ids)
-        return QueryResult(
-            doc_ids=doc_ids,
-            scores=np.where(doc_ids >= 0, scores, -np.inf),
-            visited=visited, expanded=expanded, reranked=reranked,
-        )
+        return self._result(ids, scores, visited, expanded, reranked)
+
+    def _result(self, ids: np.ndarray, scores: np.ndarray, visited: int,
+                expanded: int, reranked: int) -> QueryResult:
+        """Ordinals -> doc ids, with the scores of unmapped rows masked."""
+        with phase("reader.docmap"):
+            doc_ids = self.seg.docmap.lookup_docs(ids)
+            scores = np.where(doc_ids >= 0, scores, -np.inf)
+        return QueryResult(doc_ids=doc_ids, scores=scores, visited=visited,
+                           expanded=expanded, reranked=reranked)
 
     def _beam_sources(self) -> dict:
         """What the in_memory beam tier hands the searcher. Resident fp32
@@ -419,77 +430,78 @@ class SegmentReader:
         """Exhaustive scan (the NVQ-decoded bf16 cache for NVQ segments,
         else fused ADC over PQ codes, else exact fp32 rows for flat
         unquantized segments), exact top-r, exact rerank."""
-        seg = self.seg
-        simf = seg.config.similarity
-        r = max(params.k * params.overquery_factor, params.k)
-        t0 = time.monotonic()
-        valid = self._live_valid() if accept is None else accept
-        with phase("query", stats=self.stats):
-            if seg.nvq is not None:
-                # before the PQ branch: an NVQ segment's auxiliary PQ codes
-                # are not its rerank source
-                decoded = self._decoded_cache()
-                dec_sq = self._pq_decoded_sq
-
-                def block_scores(lo, hi):
-                    s = _decoded_scan_scores(queries, decoded[lo:hi],
-                                             dec_sq[lo:hi], simf)
-                    return s.masked_fill_(~valid[lo:hi][None, :], NEG_INF)
-            elif seg.pqv is not None:
-                luts = seg.pqv.build_query_luts(queries, simf)
-
-                def block_scores(lo, hi):
-                    return adc_scan(luts, seg.pqv.codes[lo:hi], simf,
-                                    valid[lo:hi])
-            else:
-                def block_scores(lo, hi):
-                    s = pairwise_scores(queries, seg.vectors[lo:hi], simf)
-                    return s.masked_fill_(~valid[lo:hi][None, :], NEG_INF)
-
-            approx, cand_ids = _blocked_scan_topr(block_scores,
-                                                  seg.capacity(), r)
-            qualify = approx > NEG_INF
-            if params.rerank_floor > 0.0:
-                qualify &= approx >= params.rerank_floor
-            if (seg.nvq is not None
-                    and simf is not SimilarityFunction.COSINE):
-                # a rerank would rescore the very rows the scan scored: for
-                # euclidean and dot product the approximate scores are the
-                # reconstruction's exact ones. (The reconstruction is not
-                # normalized, so cosine still reranks.)
-                exact = torch.where(qualify, approx, NEG_INF)
-            else:
-                rows = (seg.vectors if seg.vectors is not None
-                        else self._decoded_cache())  # the NVQ reconstruction
-                cand = rows[cand_ids.clamp(min=0)].float()
-                exact = batched_candidate_scores(queries, cand, simf)
-                exact = torch.where(qualify, exact, NEG_INF)
-            kk = min(params.k, exact.shape[1])
-            top_s, idx = torch.topk(exact, kk, dim=1)
-            top_i = torch.gather(cand_ids, 1, idx)
-            keep = top_s > NEG_INF
-            if params.threshold > 0.0:
-                keep &= top_s >= params.threshold
+        with phase("query", Counter.KNN_GRAPH_SEARCH_TIME, self.stats):
+            with phase("reader.launch"):
+                out = self._scan_launch(queries, params, accept)
             # one host transfer for results and counters
-            top_i, top_s, scanned, reranked = _to_host(
-                torch.where(keep, top_i, -1),
-                torch.where(keep, top_s, NEG_INF), valid.sum(),
-                qualify.sum())
+            with phase("reader.to_host"):
+                top_i, top_s, scanned, reranked = _to_host(*out)
             scanned, reranked = int(scanned), int(reranked)
-        self.stats.increment(Counter.KNN_GRAPH_SEARCH_TIME,
-                             int((time.monotonic() - t0) * 1000))
         qn = queries.shape[0]
-        if kk < params.k:
-            padw = params.k - kk
+        if top_i.shape[1] < params.k:
+            padw = params.k - top_i.shape[1]
             top_i = np.pad(top_i, ((0, 0), (0, padw)), constant_values=-1)
             top_s = np.pad(top_s, ((0, 0), (0, padw)),
                            constant_values=-np.inf)
         self._count(qn, filtered, scanned * qn, 0, reranked)
-        doc_ids = seg.docmap.lookup_docs(top_i)
-        return QueryResult(
-            doc_ids=doc_ids, scores=np.where(doc_ids >= 0, top_s, -np.inf),
-            visited=scanned * qn, expanded=0, reranked=reranked,
-        )
+        return self._result(top_i, top_s, scanned * qn, 0, reranked)
+
+    def _scan_launch(self, queries, params: SearchParams, accept):
+        """The scan tier's work queued on the device -> (top ids [Q, k'],
+        top scores [Q, k'], rows scanned, candidates reranked), k' =
+        min(k, r, capacity)."""
+        seg = self.seg
+        simf = seg.config.similarity
+        r = max(params.k * params.overquery_factor, params.k)
+        valid = self._live_valid() if accept is None else accept
+        if seg.nvq is not None:
+            # before the PQ branch: an NVQ segment's auxiliary PQ codes
+            # are not its rerank source
+            decoded = self._decoded_cache()
+            dec_sq = self._pq_decoded_sq
+
+            def block_scores(lo, hi):
+                s = _decoded_scan_scores(queries, decoded[lo:hi],
+                                         dec_sq[lo:hi], simf)
+                return s.masked_fill_(~valid[lo:hi][None, :], NEG_INF)
+        elif seg.pqv is not None:
+            luts = seg.pqv.build_query_luts(queries, simf)
+
+            def block_scores(lo, hi):
+                return adc_scan(luts, seg.pqv.codes[lo:hi], simf,
+                                valid[lo:hi])
+        else:
+            def block_scores(lo, hi):
+                s = pairwise_scores(queries, seg.vectors[lo:hi], simf)
+                return s.masked_fill_(~valid[lo:hi][None, :], NEG_INF)
+
+        approx, cand_ids = _blocked_scan_topr(block_scores,
+                                              seg.capacity(), r)
+        qualify = approx > NEG_INF
+        if params.rerank_floor > 0.0:
+            qualify &= approx >= params.rerank_floor
+        if (seg.nvq is not None
+                and simf is not SimilarityFunction.COSINE):
+            # a rerank would rescore the very rows the scan scored: for
+            # euclidean and dot product the approximate scores are the
+            # reconstruction's exact ones. (The reconstruction is not
+            # normalized, so cosine still reranks.)
+            exact = torch.where(qualify, approx, NEG_INF)
+        else:
+            rows = (seg.vectors if seg.vectors is not None
+                    else self._decoded_cache())  # the NVQ reconstruction
+            cand = rows[cand_ids.clamp(min=0)].float()
+            exact = batched_candidate_scores(queries, cand, simf)
+            exact = torch.where(qualify, exact, NEG_INF)
+        kk = min(params.k, exact.shape[1])
+        top_s, idx = torch.topk(exact, kk, dim=1)
+        top_i = torch.gather(cand_ids, 1, idx)
+        keep = top_s > NEG_INF
+        if params.threshold > 0.0:
+            keep &= top_s >= params.threshold
+        return (torch.where(keep, top_i, -1),
+                torch.where(keep, top_s, NEG_INF), valid.sum(),
+                qualify.sum())
 
     def _codes_scan_fn(self, queries, valid):
         """block_scores(lo, hi) for the on_disk scan tier, on the first rung
@@ -543,30 +555,23 @@ class SegmentReader:
         seg = self.seg
         r = max(params.k * params.overquery_factor, params.k)
         qn = queries.shape[0]
-        t0 = time.monotonic()
-        with phase("query", stats=self.stats):
-            with record_function("approximate"):
+        with phase("query", Counter.KNN_GRAPH_SEARCH_TIME, self.stats):
+            with phase("approximate"):
                 cand_ids, approx, visited, expanded = self._approximate(
                     queries, params, accept, r, force_scan)
             qualify = cand_ids >= 0
             if params.rerank_floor > 0.0:
                 qualify &= approx >= params.rerank_floor
             flat_ids = cand_ids.reshape(-1)
-            with record_function("rerank_gather"):
+            with phase("rerank_gather"):
                 seg.row_store.prefetch(flat_ids)
                 rows = seg.row_store.gather(flat_ids).reshape(qn, r, -1)
-            with record_function("rerank_score"):
+            with phase("rerank_score"):
                 top_i, top_s = _host_rerank(q_host, rows, cand_ids, qualify,
                                             params, seg.config.similarity)
-        self.stats.increment(Counter.KNN_GRAPH_SEARCH_TIME,
-                             int((time.monotonic() - t0) * 1000))
         reranked = int(qualify.sum())
         self._count(qn, filtered, visited, expanded, reranked)
-        doc_ids = seg.docmap.lookup_docs(top_i)
-        return QueryResult(
-            doc_ids=doc_ids, scores=np.where(doc_ids >= 0, top_s, -np.inf),
-            visited=visited, expanded=expanded, reranked=reranked,
-        )
+        return self._result(top_i, top_s, visited, expanded, reranked)
 
     def _approximate(self, queries, params: SearchParams, accept, r: int,
                      force_scan: bool):
@@ -575,13 +580,15 @@ class SegmentReader:
         expanded."""
         seg = self.seg
         if force_scan or seg.capacity() <= self._scan_bound():
-            valid = self._live_valid() if accept is None else accept
-            approx, cand_ids = _blocked_scan_topr(
-                self._codes_scan_fn(queries, valid), seg.capacity(), r)
+            with phase("reader.launch"):
+                valid = self._live_valid() if accept is None else accept
+                approx, cand_ids = _blocked_scan_topr(
+                    self._codes_scan_fn(queries, valid), seg.capacity(), r)
             # counter semantics: the scan tier visits every scanned code
             # once per query
-            cand_ids, approx, scanned = _to_host(cand_ids, approx,
-                                                 valid.sum())
+            with phase("reader.to_host"):
+                cand_ids, approx, scanned = _to_host(cand_ids, approx,
+                                                     valid.sum())
             cand_ids = np.where(approx > -np.inf, cand_ids, -1)
             if cand_ids.shape[1] < r:  # tiny segment: pad to r
                 padw = r - cand_ids.shape[1]
@@ -590,22 +597,24 @@ class SegmentReader:
                 approx = np.pad(approx, ((0, 0), (0, padw)),
                                 constant_values=-np.inf)
             return cand_ids, approx, int(scanned) * queries.shape[0], 0
-        source: dict = {}
-        if seg.graph.upper_adjacency is not None:
-            source["upper_adjacency"] = seg.graph.upper_adjacency
-        try:
-            source["pq_decoded"] = self._decoded_cache()
-        except CircuitBreakerException:  # memory-tight: codes only
-            source.update(pq_codes=seg.pqv.codes,
-                          pq_codebooks=seg.pqv.pq.codebooks,
-                          pq_center=seg.pqv.pq.center)
-        res = searcher_mod.search(
-            seg.graph.adjacency, seg.graph.live, seg.graph.entry, queries,
-            dataclasses.replace(params, k=r), seg.config.similarity,
-            accept=accept, **source)
-        cand_ids, approx, visited, expanded = _to_host(
-            res.ids, res.scores, res.visited_count.sum(),
-            res.expanded_count.sum())
+        with phase("reader.launch"):
+            source: dict = {}
+            if seg.graph.upper_adjacency is not None:
+                source["upper_adjacency"] = seg.graph.upper_adjacency
+            try:
+                source["pq_decoded"] = self._decoded_cache()
+            except CircuitBreakerException:  # memory-tight: codes only
+                source.update(pq_codes=seg.pqv.codes,
+                              pq_codebooks=seg.pqv.pq.codebooks,
+                              pq_center=seg.pqv.pq.center)
+            res = searcher_mod.search(
+                seg.graph.adjacency, seg.graph.live, seg.graph.entry,
+                queries, dataclasses.replace(params, k=r),
+                seg.config.similarity, accept=accept, **source)
+        with phase("reader.to_host"):
+            cand_ids, approx, visited, expanded = _to_host(
+                res.ids, res.scores, res.visited_count.sum(),
+                res.expanded_count.sum())
         return cand_ids, approx, int(visited), int(expanded)
 
 

@@ -29,12 +29,17 @@ Port of the flush of `opensearch_jvector_tpu/index/writer.py`:
     buffer. It is ignored after an in-buffer dedup and after a buffered
     delete compacted the blocks (positions moved)
   * writes the segment with versioned, checksummed containers
+  * each step of a flush is a span (`utils/profiling.phase`) inside the
+    `flush` range: `writer.upload`, `writer.quantize` (`writer.pq_train`,
+    `writer.pq_encode`, `writer.nvq_train`), `writer.build` (with
+    `GraphIndexBuilder`'s `builder.*` spans inside) and `writer.write`; a
+    graph build adds its nodes, rows scored and nodes expanded to the
+    `knn_graph_build_*` counters
 """
 
 from __future__ import annotations
 
 import threading
-import time
 from pathlib import Path
 
 import numpy as np
@@ -192,28 +197,30 @@ class IndexWriter:
         if (cfg.quantization_type == QUANT_NONE
                 or n < cfg.min_batch_size_for_quantization):
             return None, None, None
-        t0 = time.monotonic()
         pqv = nvq = scalar = None
-        if cfg.quantization_type in SCALAR_QUANTS:
-            state = scalar_mod.train_scalar_quantizer(
-                vectors, bits=SCALAR_BITS[cfg.quantization_type])
-            scalar = (state, scalar_mod.quantize_vectors(state, vectors))
-        else:
-            pq = pq_mod.train_pq(
-                vectors, cfg.similarity, num_subspaces=cfg.num_pq_subspaces,
-                device=self.device,
-                anisotropic_eta=pq_mod.eta_from_config(cfg, vectors))
-            if device_rows is not None:
-                codes = torch.cat([pq_mod.encode(pq, rows, cfg.similarity)
-                                   for rows in _provider_blocks(device_rows,
-                                                                n)])
-            else:
-                codes = pq_mod.encode(pq, vectors, cfg.similarity)
+        with phase("writer.quantize", Counter.KNN_QUANTIZATION_TRAINING_TIME,
+                   self.stats):
+            if cfg.quantization_type in SCALAR_QUANTS:
+                state = scalar_mod.train_scalar_quantizer(
+                    vectors, bits=SCALAR_BITS[cfg.quantization_type])
+                scalar = (state, scalar_mod.quantize_vectors(state, vectors))
+                return pqv, nvq, scalar
+            with phase("writer.pq_train"):
+                pq = pq_mod.train_pq(
+                    vectors, cfg.similarity,
+                    num_subspaces=cfg.num_pq_subspaces, device=self.device,
+                    anisotropic_eta=pq_mod.eta_from_config(cfg, vectors))
+            with phase("writer.pq_encode"):
+                if device_rows is not None:
+                    codes = torch.cat([
+                        pq_mod.encode(pq, rows, cfg.similarity)
+                        for rows in _provider_blocks(device_rows, n)])
+                else:
+                    codes = pq_mod.encode(pq, vectors, cfg.similarity)
             pqv = pq_mod.PQVectors(pq=pq, codes=codes)
             if cfg.quantization_type == QUANT_NVQ:
-                nvq = nvq_mod.train_nvq(vectors, cfg.nvq_num_subvectors)
-        self.stats.increment(Counter.KNN_QUANTIZATION_TRAINING_TIME,
-                             int((time.monotonic() - t0) * 1000))
+                with phase("writer.nvq_train"):
+                    nvq = nvq_mod.train_nvq(vectors, cfg.nvq_num_subvectors)
         return pqv, nvq, scalar
 
     def flush(self, name: str | None = None, sort_map=None,
@@ -280,69 +287,78 @@ class IndexWriter:
         # flat segments and the quantized build keep the corpus on the
         # host (train on a host sample, streamed encode); an fp32 graph
         # build needs the rows on the device
-        host = np.ascontiguousarray(vectors_np, np.float32)
-        vectors = host
-        if not (flat or quantized):
-            vectors = (torch.cat(list(_provider_blocks(device_rows, n)))
-                       if device_rows is not None
-                       else torch.from_numpy(host).to(self.device))
-            device_rows = None  # the rows are on the device now
+        with phase("writer.upload"):
+            host = np.ascontiguousarray(vectors_np, np.float32)
+            vectors = host
+            if not (flat or quantized):
+                vectors = (torch.cat(list(_provider_blocks(device_rows, n)))
+                           if device_rows is not None
+                           else torch.from_numpy(host).to(self.device))
+                device_rows = None  # the rows are on the device now
 
         pqv, nvq, scalar = self._quantize_for_flush(vectors, device_rows)
 
-        t0 = time.monotonic()
-        if flat:
-            graph = VamanaGraph.flat(cap, n, self.device)
-        else:
-            builder = GraphIndexBuilder(
-                dim=cfg.dim, max_degree=cfg.m,
-                beam_width=cfg.ef_construction, alpha=cfg.alpha,
-                neighbor_overflow=cfg.neighbor_overflow,
-                hierarchy_enabled=cfg.hierarchy_enabled,
-                batch_size=self.build_batch_size,
-            )
-            build_pq = None
-            if on_disk and pqv is not None:
-                build_pq = {"decoded": pqv.decode_bf16()}
-            # the quantized build's only corpus on the device: the decoded
-            # rows of the n real ordinals, built at the segment's capacity
-            src = build_pq["decoded"] if quantized else vectors
-            graph = builder.build(src, cfg.similarity, capacity=cap,
-                                  pq=build_pq)
-            del build_pq, src
-        self.stats.increment(Counter.KNN_GRAPH_BUILD_TIME,
-                             int((time.monotonic() - t0) * 1000))
+        with phase("writer.build", Counter.KNN_GRAPH_BUILD_TIME, self.stats):
+            if flat:
+                graph = VamanaGraph.flat(cap, n, self.device)
+            else:
+                builder = GraphIndexBuilder(
+                    dim=cfg.dim, max_degree=cfg.m,
+                    beam_width=cfg.ef_construction, alpha=cfg.alpha,
+                    neighbor_overflow=cfg.neighbor_overflow,
+                    hierarchy_enabled=cfg.hierarchy_enabled,
+                    batch_size=self.build_batch_size,
+                )
+                build_pq = None
+                if on_disk and pqv is not None:
+                    build_pq = {"decoded": pqv.decode_bf16()}
+                # the quantized build's only corpus on the device: the
+                # decoded rows of the n real ordinals, built at the
+                # segment's capacity
+                src = build_pq["decoded"] if quantized else vectors
+                graph = builder.build(src, cfg.similarity, capacity=cap,
+                                      pq=build_pq)
+                del build_pq, src
+                c = builder.counters
+                self.stats.increment(Counter.KNN_GRAPH_BUILD_NODES,
+                                     c.nodes_inserted)
+                self.stats.increment(Counter.KNN_GRAPH_BUILD_ROWS_SCORED,
+                                     c.rows_scored)
+                self.stats.increment(Counter.KNN_GRAPH_BUILD_EXPANDED_NODES,
+                                     c.expanded)
+        with phase("writer.write"):
+            docmap = DocMap(doc_ids,
+                            parent_ids if (parent_ids >= 0).any() else None)
+            if sort_map is not None:
+                docmap = docmap.apply_sort(
+                    _checked_sort_map(sort_map, doc_ids))
 
-        docmap = DocMap(doc_ids,
-                        parent_ids if (parent_ids >= 0).any() else None)
-        if sort_map is not None:
-            docmap = docmap.apply_sort(_checked_sort_map(sort_map, doc_ids))
-
-        cap = graph.capacity
-        if pqv is not None:
-            pqv = pq_mod.PQVectors(pq=pqv.pq, codes=pad_rows(pqv.codes, cap))
-        if nvq is not None:
-            # NVQ replaces the inline fp32 rows, in either mode
-            nvq = nvq_mod.NVQVectors(bytes_=pad_rows(nvq.bytes_, cap),
-                                     params=pad_rows(nvq.params, cap),
-                                     global_mean=nvq.global_mean)
-            vectors = None
-        elif on_disk and pqv is not None:
-            # the row file is written from the host buffer, sliced to the
-            # used prefix: no padding needed
-            vectors = host
-        else:
-            if flat:  # in-memory flat rows serve the scan on the device
-                vectors = torch.from_numpy(host).to(self.device)
-            vectors = pad_rows(vectors, cap)
-        seg = Segment(
-            name=name, config=cfg, graph=graph, docmap=docmap,
-            vectors=vectors, nvq=nvq, pqv=pqv,
-            scalar_state=scalar[0] if scalar else None,
-            scalar_codes=pad_rows(scalar[1], cap) if scalar else None)
-        path = write_segment(self.root, seg)
-        self.stats.increment(Counter.KNN_FLUSH_COUNT)
-        return path
+            cap = graph.capacity
+            if pqv is not None:
+                pqv = pq_mod.PQVectors(pq=pqv.pq,
+                                       codes=pad_rows(pqv.codes, cap))
+            if nvq is not None:
+                # NVQ replaces the inline fp32 rows, in either mode
+                nvq = nvq_mod.NVQVectors(bytes_=pad_rows(nvq.bytes_, cap),
+                                         params=pad_rows(nvq.params, cap),
+                                         global_mean=nvq.global_mean)
+                vectors = None
+            elif on_disk and pqv is not None:
+                # the row file is written from the host buffer, sliced to
+                # the used prefix: no padding needed
+                vectors = host
+            else:
+                if flat:  # in-memory flat rows serve the scan on the device
+                    vectors = torch.from_numpy(host).to(self.device)
+                vectors = pad_rows(vectors, cap)
+            seg = Segment(
+                name=name, config=cfg, graph=graph, docmap=docmap,
+                vectors=vectors, nvq=nvq, pqv=pqv,
+                scalar_state=scalar[0] if scalar else None,
+                scalar_codes=pad_rows(scalar[1], cap) if scalar else None)
+            path = write_segment(self.root, seg)
+            self.stats.increment(Counter.KNN_FLUSH_COUNT)
+            return path
 
 
 def _checked_sort_map(sort_map, doc_ids: np.ndarray) -> np.ndarray:

@@ -36,19 +36,24 @@ candidates' rows by id, so the [B, C, d] gather and the [B, C, C]
 distances stay off device memory); on the CPU both run their plain
 versions.
 
-`GraphIndexBuilder.counters` (`BuildCounters`) counts insert rounds and
-inserted nodes. With `BUILD_PROFILE` on (`JVECTOR_TPU_BUILD_PROFILE=1` at
-import, or the module attribute set), every phase of an insert round and of
-`cleanup` waits for the device at its end and adds its wall-clock seconds
-to `counters.phase_s`. That serialises the pipelined rounds, so it is for
-diagnosis only; with it off, no phase adds a wait or a transfer.
+`GraphIndexBuilder.counters` (`BuildCounters`) counts insert rounds,
+inserted nodes, and the rows scored and nodes expanded by the insert
+rounds' walks (read back with the round's own transfer of its prune
+output). Every phase of an insert round and of `cleanup`, and the entry
+point, the bootstrap and the whole cleanup, is a span `builder.<phase>`
+(`utils/profiling.phase`: a profiler range only while a profiler
+records). With `BUILD_PROFILE` on (`JVECTOR_TPU_BUILD_PROFILE=1` at
+import, or the module attribute set), every phase also waits for the
+device at its end and adds its wall-clock seconds to `counters.phase_s`.
+That serialises the pipelined rounds, so it is for diagnosis only; with
+it off, no phase adds a wait or a transfer.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-import time
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -65,6 +70,7 @@ from opensearch_jvector_tpu_torch.ops.distances import (
     pairwise_scores,
 )
 from opensearch_jvector_tpu_torch.ops.prune_kernel import robust_prune
+from opensearch_jvector_tpu_torch.utils.profiling import phase
 
 NEG_INF = float("-inf")
 
@@ -85,10 +91,6 @@ def _sync(device: torch.device) -> None:
     """Wait for the work queued on `device` (the profile's phase edges)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def _phase_start() -> float:
-    return time.perf_counter() if BUILD_PROFILE else 0.0
 
 
 def _build_rows(vectors: torch.Tensor) -> torch.Tensor:
@@ -183,13 +185,16 @@ class _DeviceAdj:
 @dataclasses.dataclass
 class BuildCounters:
     """Insert rounds and inserted nodes over a GraphIndexBuilder's life,
-    and under BUILD_PROFILE the seconds by phase. Nothing counts
-    `nodes_deleted` (tombstones are folded in by `cleanup`, as in the
-    reference)."""
+    the rows scored (`visited_count`) and nodes expanded
+    (`expanded_count`) by the insert rounds' walks, and under
+    BUILD_PROFILE the seconds by phase. Nothing counts `nodes_deleted`
+    (tombstones are folded in by `cleanup`, as in the reference)."""
 
     rounds: int = 0
     nodes_inserted: int = 0
     nodes_deleted: int = 0
+    rows_scored: int = 0
+    expanded: int = 0
     phase_s: dict = dataclasses.field(default_factory=dict)
 
     def _phase(self, name: str, dt: float) -> None:
@@ -243,23 +248,25 @@ class GraphIndexBuilder:
         self.counters = BuildCounters()
         self._has_tombstones = False
 
-    def _phase_end(self, name: str, t0: float, device) -> float:
-        """Under BUILD_PROFILE: wait for `device`, add the seconds since
-        `t0` to phase `name` and return the next phase's start. Nothing
-        (no wait) when the profile is off."""
-        if not BUILD_PROFILE:
-            return 0.0
-        _sync(device)
-        t = time.perf_counter()
-        self.counters._phase(name, t - t0)
-        return t
+    @contextmanager
+    def _phase(self, name: str, device):
+        """The span `builder.<name>`; under BUILD_PROFILE it also waits for
+        `device` at its end and adds its seconds to phase `name`. No wait
+        when the profile is off."""
+        profile = BUILD_PROFILE
+        add = (lambda dt: self.counters._phase(name, dt)) if profile else None
+        with phase("builder." + name, add_seconds=add):
+            yield
+            if profile:
+                _sync(device)
 
     # -- scoring helpers ---------------------------------------------------
 
     def _search_candidates(self, adj, live_dev, entry, vectors, queries,
                            simf, pq=None):
-        """Beam-search candidate pools (ids [B, R], scores [B, R]); with
-        `pq` the candidates score from its decoded cache."""
+        """Beam-search candidate pools (ids [B, R], scores [B, R]) and the
+        walk's [rows scored, nodes expanded] (int64 [2], on the device);
+        with `pq` the candidates score from its decoded cache."""
         r = self.beam_width
         e = CONSTRUCTION_EXPANSIONS
         if pq is None and vectors.dtype == torch.bfloat16:
@@ -276,7 +283,9 @@ class GraphIndexBuilder:
             adj, live_dev, entry, queries, params, simf,
             has_tombstones=self._has_tombstones, **source,
         )
-        return res.ids, res.scores
+        walk = torch.stack([res.visited_count.sum(),
+                            res.expanded_count.sum()]).long()
+        return res.ids, res.scores, walk
 
     # -- adjacency application ----------------------------------------------
 
@@ -369,48 +378,56 @@ class GraphIndexBuilder:
         candidates, prune, forward rows + live mark. Returns the pending
         state for `_round_finish`."""
         dev = st.adj.device
-        t0 = _phase_start()
-        batch_t = torch.as_tensor(batch, device=dev)
-        queries = vectors[batch_t].float()
-        cand_ids, cand_scores = self._search_candidates(
-            st.adj, live_dev, entry, vectors, queries, simf, pq)
-        t0 = self._phase_end("search", t0, dev)
-        b = batch.size
-        top_r = min(b - 1, self.max_degree) if b > 1 else 0
-        if top_r > 0:
-            # intra-round candidates: the batch's own nearest members
-            rr = pairwise_scores(queries, queries, simf)
-            rr.fill_diagonal_(NEG_INF)
-            rr_scores, rr_idx = torch.topk(rr, top_r, dim=1)
-            del rr
-            cand_ids = torch.cat([cand_ids, batch_t[rr_idx]], dim=1)
-            cand_scores = torch.cat([cand_scores, rr_scores], dim=1)
-        sel = robust_prune(vectors, cand_ids, cand_scores, self.alpha,
-                           self.max_degree, simf, point_ids=batch_t)
-        st.write_rows(batch_t, sel)
-        live_dev[batch_t] = True
-        self._phase_end("prune+fwd", t0, dev)
-        return batch, sel
+        with self._phase("search", dev):
+            batch_t = torch.as_tensor(batch, device=dev)
+            queries = vectors[batch_t].float()
+            cand_ids, cand_scores, walk = self._search_candidates(
+                st.adj, live_dev, entry, vectors, queries, simf, pq)
+        with self._phase("prune+fwd", dev):
+            b = batch.size
+            top_r = min(b - 1, self.max_degree) if b > 1 else 0
+            if top_r > 0:
+                # intra-round candidates: the batch's own nearest members
+                rr = pairwise_scores(queries, queries, simf)
+                rr.fill_diagonal_(NEG_INF)
+                rr_scores, rr_idx = torch.topk(rr, top_r, dim=1)
+                del rr
+                cand_ids = torch.cat([cand_ids, batch_t[rr_idx]], dim=1)
+                cand_scores = torch.cat([cand_scores, rr_scores], dim=1)
+            sel = robust_prune(vectors, cand_ids, cand_scores, self.alpha,
+                               self.max_degree, simf, point_ids=batch_t)
+            st.write_rows(batch_t, sel)
+            live_dev[batch_t] = True
+        return batch, sel, walk
 
     def _round_finish(self, st: _DeviceAdj, pending, vectors, simf):
-        """Host half of an insert round: fetch the prune output, compute
+        """Host half of an insert round: fetch the prune output (with the
+        round's walk counts, where `pending` carries them), compute
         reverse-edge slots, apply them, run overflow prunes."""
-        new_ids, sel_dev = pending
+        new_ids, sel_dev, walk = pending
         dev = sel_dev.device
-        t0 = _phase_start()
-        ids_t = torch.as_tensor(new_ids, device=dev)
-        both = torch.stack([sel_dev,
-                            self._edge_present(st, ids_t, sel_dev).long()])
-        sel, present = both.cpu().numpy()  # one transfer
-        t0 = self._phase_end("sel_fetch", t0, dev)
-        st.deg[new_ids] = (sel >= 0).sum(axis=1)
-        dst, slot, src, overflowed, extras = self._compute_back_edges(
-            st.deg, new_ids, sel, self.overflow_degree, present.astype(bool))
-        t0 = self._phase_end("backedges_host", t0, dev)
-        st.write_edges(dst, slot, src)
-        t0 = self._phase_end("apply", t0, dev)
-        self._prune_overflow(st, overflowed, vectors, simf, extras=extras)
-        self._phase_end("overflow", t0, dev)
+        with self._phase("sel_fetch", dev):
+            ids_t = torch.as_tensor(new_ids, device=dev)
+            both = torch.stack([sel_dev,
+                                self._edge_present(st, ids_t, sel_dev).long()])
+            if walk is not None:
+                both = torch.cat([both.reshape(-1), walk])
+            host = both.cpu().numpy()  # one transfer
+            if walk is not None:
+                self.counters.rows_scored += int(host[-2])
+                self.counters.expanded += int(host[-1])
+                host = host[:-2].reshape(2, *sel_dev.shape)
+            sel, present = host
+        with self._phase("backedges_host", dev):
+            st.deg[new_ids] = (sel >= 0).sum(axis=1)
+            dst, slot, src, overflowed, extras = self._compute_back_edges(
+                st.deg, new_ids, sel, self.overflow_degree,
+                present.astype(bool))
+        with self._phase("apply", dev):
+            st.write_edges(dst, slot, src)
+        with self._phase("overflow", dev):
+            self._prune_overflow(st, overflowed, vectors, simf,
+                                 extras=extras)
 
     # -- public API --------------------------------------------------------
 
@@ -453,11 +470,12 @@ class GraphIndexBuilder:
 
         # entry point: medoid approximation = nearest to the mean of the n
         # real rows (pad rows excluded)
-        mean = torch.mean(vectors[:n], dim=0, keepdim=True,
-                          dtype=torch.float32)
-        escores = _scores_to_rows(mean, vectors, simf)
-        escores[n:] = NEG_INF
-        entry = int(torch.argmax(escores))
+        with phase("builder.entry"):
+            mean = torch.mean(vectors[:n], dim=0, keepdim=True,
+                              dtype=torch.float32)
+            escores = _scores_to_rows(mean, vectors, simf)
+            escores[n:] = NEG_INF
+            entry = int(torch.argmax(escores))
 
         rng = np.random.default_rng(self.seed)
         order = rng.permutation(n)
@@ -467,9 +485,10 @@ class GraphIndexBuilder:
         order[[0, mpos]] = order[[mpos, 0]]
         b0 = min(n, max(self.max_degree + 1, min(1024, self.batch_size)))
         boot = order[:b0]
-        self._bootstrap(st, boot, vectors, simf)
-        live[boot] = True
-        live_dev[torch.as_tensor(boot, device=dev)] = True
+        with phase("builder.bootstrap"):
+            self._bootstrap(st, boot, vectors, simf)
+            live[boot] = True
+            live_dev[torch.as_tensor(boot, device=dev)] = True
 
         # Round size ramps with graph size (a huge batch into a tiny graph
         # finds poor candidates). Pipelined: dispatch round k, then finish
@@ -527,14 +546,14 @@ class GraphIndexBuilder:
             for s in range(0, order.size, self.batch_size):
                 batch = order[s: s + self.batch_size]
                 batch_t = torch.as_tensor(batch, device=dev)
-                cand_ids, _ = self._search_candidates(
+                cand_ids, _, _ = self._search_candidates(
                     st.adj, graph.live, graph.entry, vectors,
                     vectors[batch_t].float(), simf, pq)
                 self._prune_overflow(
                     st, batch, vectors, simf,
                     extras=cand_ids[:, : 2 * self.max_degree])
                 sel = st.adj[batch_t][:, : self.max_degree].long()
-                self._round_finish(st, (batch, sel), vectors, simf)
+                self._round_finish(st, (batch, sel, None), vectors, simf)
         return dataclasses.replace(
             graph, adjacency=st.adj,
             degrees=torch.as_tensor(st.deg, device=dev))
@@ -616,7 +635,8 @@ class GraphIndexBuilder:
         # forward rows, then reverse edges exactly like an insert round
         # (bidirectional links)
         st.write_rows(ids_t, sel_t)
-        self._round_finish(st, (np.asarray(ids), sel_t), vectors, simf)
+        self._round_finish(st, (np.asarray(ids), sel_t, None), vectors,
+                           simf)
 
     def cleanup(self, graph: VamanaGraph, vectors: torch.Tensor,
                 simf: SimilarityFunction) -> VamanaGraph:
@@ -626,60 +646,70 @@ class GraphIndexBuilder:
         splice), every node that overflows or holds a neighbour twice is
         re-pruned to max_degree, a dead entry is replaced, and unreachable
         live nodes are linked in. The adjacency is updated in place."""
+        with phase("builder.cleanup"):
+            return self._cleanup(graph, vectors, simf)
+
+    def _cleanup(self, graph: VamanaGraph, vectors: torch.Tensor,
+                 simf: SimilarityFunction) -> VamanaGraph:
         dev = graph.adjacency.device
-        t0 = _phase_start()
-        st = _DeviceAdj(graph.adjacency, graph.degrees.cpu().numpy().copy())
-        live = graph.live.cpu().numpy()
-        live_dev = graph.live
-        vectors = pad_rows(_build_rows(vectors), graph.capacity)
+        with self._phase("cleanup_fetch", dev):
+            st = _DeviceAdj(graph.adjacency,
+                            graph.degrees.cpu().numpy().copy())
+            live = graph.live.cpu().numpy()
+            live_dev = graph.live
+            vectors = pad_rows(_build_rows(vectors), graph.capacity)
 
-        adj = st.adj.long()
-        has_dead = torch.any((adj >= 0) & ~live_dev[adj.clamp(min=0)], dim=1)
-        del adj
-        dead_nodes = np.nonzero(has_dead.cpu().numpy() & live)[0]
-        t0 = self._phase_end("cleanup_fetch", t0, dev)
-        if dead_nodes.size:
-            width = st.cap_deg * (st.cap_deg + 1)
-            chunk = max(64, min(self.batch_size, SPLICE_GATHER_BYTES
-                                // (width * vectors.shape[1] * 4)))
-            for s in range(0, dead_nodes.size, chunk):
-                ids = dead_nodes[s: s + chunk]
-                sel = self._splice_prune(st, torch.as_tensor(ids, device=dev),
-                                         live_dev, vectors, simf)
-                st.deg[ids] = (sel >= 0).sum(1).cpu().numpy()
-        t0 = self._phase_end("cleanup_splice", t0, dev)
+            adj = st.adj.long()
+            has_dead = torch.any((adj >= 0) & ~live_dev[adj.clamp(min=0)],
+                                 dim=1)
+            del adj
+            dead_nodes = np.nonzero(has_dead.cpu().numpy() & live)[0]
+        with self._phase("cleanup_splice", dev):
+            if dead_nodes.size:
+                width = st.cap_deg * (st.cap_deg + 1)
+                chunk = max(64, min(self.batch_size, SPLICE_GATHER_BYTES
+                                    // (width * vectors.shape[1] * 4)))
+                for s in range(0, dead_nodes.size, chunk):
+                    ids = dead_nodes[s: s + chunk]
+                    sel = self._splice_prune(
+                        st, torch.as_tensor(ids, device=dev), live_dev,
+                        vectors, simf)
+                    st.deg[ids] = (sel >= 0).sum(1).cpu().numpy()
 
-        # rows over the degree bound, and rows that hold a neighbour twice
-        # (graphs written by the reference's builder can): the prune keeps
-        # one occurrence
-        srt = torch.sort(st.adj, dim=1).values
-        has_dup = torch.any((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0),
-                            dim=1).cpu().numpy()
-        del srt
-        over = np.nonzero((st.deg > self.max_degree) | (has_dup & live))[0]
-        self._prune_overflow(st, over, vectors, simf)
-        t0 = self._phase_end("cleanup_overflow", t0, dev)
+        with self._phase("cleanup_overflow", dev):
+            # rows over the degree bound, and rows that hold a neighbour
+            # twice (graphs written by the reference's builder can): the
+            # prune keeps one occurrence
+            srt = torch.sort(st.adj, dim=1).values
+            has_dup = torch.any(
+                (srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0),
+                dim=1).cpu().numpy()
+            del srt
+            over = np.nonzero((st.deg > self.max_degree)
+                              | (has_dup & live))[0]
+            self._prune_overflow(st, over, vectors, simf)
 
-        # entry repair: if the entry died, take the live node closest to
-        # the mean of the live rows
-        entry = int(graph.entry)
-        if not live[entry] and live.any():
-            lm = live_dev[:, None].float()
-            mean = sum(torch.sum(blk * lm[lo: lo + blk.shape[0]], 0,
-                                 keepdim=True)
-                       for lo, blk in _float_blocks(vectors))
-            mean = mean / torch.clamp(lm.sum(), min=1.0)
-            s = _scores_to_rows(mean, vectors, simf)
-            entry = int(torch.argmax(torch.where(live_dev, s, NEG_INF)))
+        with self._phase("cleanup_orphans", dev):
+            # entry repair: if the entry died, take the live node closest
+            # to the mean of the live rows
+            entry = int(graph.entry)
+            if not live[entry] and live.any():
+                lm = live_dev[:, None].float()
+                mean = sum(torch.sum(blk * lm[lo: lo + blk.shape[0]], 0,
+                                     keepdim=True)
+                           for lo, blk in _float_blocks(vectors))
+                mean = mean / torch.clamp(lm.sum(), min=1.0)
+                s = _scores_to_rows(mean, vectors, simf)
+                entry = int(torch.argmax(torch.where(live_dev, s, NEG_INF)))
 
-        # reachability repair: overflow pruning can drop a node's only
-        # in-path; link every unreachable live node from its nearest
-        # reachable neighbor (3 passes is a safety bound)
-        if live.any():
-            for _ in range(3):
-                if self._repair_orphans(st, live, vectors, simf, entry) == 0:
-                    break
-        self._phase_end("cleanup_orphans", t0, dev)
+            # reachability repair: overflow pruning can drop a node's only
+            # in-path; link every unreachable live node from its nearest
+            # reachable neighbor (3 passes is a safety bound)
+            if live.any():
+                for _ in range(3):
+                    if self._repair_orphans(st, live, vectors, simf,
+                                            entry) == 0:
+                        break
 
         upper = None
         if self.hierarchy_enabled:

@@ -274,12 +274,12 @@ class ShardedVectorIndex:
                 self.stats.increment(Counter.KNN_MESH_REJECT_STACK_SHAPE)
                 return None
             self._mesh_state, self._mesh_segments = state, names
-            ms = int((time.monotonic() - t0) * 1000)
+            dt = time.monotonic() - t0
             for reg in self.shard_stats:
                 reg.increment(Counter.KNN_MESH_RESTACK_COUNT)
                 if rebuilt < self.n_shards:
                     reg.increment(Counter.KNN_MESH_RESTACK_PARTIAL_COUNT)
-                reg.increment(Counter.KNN_MESH_RESTACK_TIME, ms)
+                reg.add_seconds(Counter.KNN_MESH_RESTACK_TIME, dt)
             return state
 
     def _accept(self, state, readers, deletes, accept_docs):
@@ -303,7 +303,7 @@ class ShardedVectorIndex:
         return out
 
     def _count(self, counters: np.ndarray, qn: int, filtered: bool,
-               reranked: np.ndarray, ms: int) -> None:
+               reranked: np.ndarray, seconds: float) -> None:
         for s, reg in enumerate(self.shard_stats):
             reg.increment(Counter.KNN_QUERY_COUNT, qn)
             if filtered:
@@ -314,7 +314,7 @@ class ShardedVectorIndex:
             reg.increment(Counter.KNN_QUERY_EXPANDED_BASE_LAYER_NODES,
                           int(counters[s, 1]))
             reg.increment(Counter.KNN_QUERY_RERANKED_COUNT, int(reranked[s]))
-            reg.increment(Counter.KNN_GRAPH_SEARCH_TIME, ms)
+            reg.add_seconds(Counter.KNN_GRAPH_SEARCH_TIME, seconds)
 
     def _search_on_mesh(self, queries: np.ndarray, sc: SearchConfig,
                         accept_docs) -> QueryResult | None:
@@ -352,9 +352,9 @@ class ShardedVectorIndex:
                 docs, scores, counters = (t.cpu().numpy() for t in
                                           (docs, scores, counters))
                 reranked = counters[:, 2]
-            ms = int((time.monotonic() - t0) * 1000)
+            dt = time.monotonic() - t0
         self._count(counters, queries.shape[0], accept_docs is not None,
-                    reranked, ms)
+                    reranked, dt)
         return QueryResult(
             doc_ids=docs.astype(np.int64), scores=scores.astype(np.float32),
             visited=int(counters[:, 0].sum()),

@@ -34,7 +34,8 @@ Routes mirror the reference's user-facing API shape:
 This is a thin control plane: all heavy work stays in the index layer.
 Stdlib-only (no external web framework in the image). The handler adds
 each request's host seconds by stage (`json_parse`, `execute`,
-`response_build`) to `IndexManager.stage_seconds`.
+`response_build`) to `IndexManager.stage_seconds`; each stage is also the
+span `service.<stage>` (`utils/profiling.phase`).
 """
 
 from __future__ import annotations
@@ -45,7 +46,6 @@ import re
 import shutil
 import threading
 import time
-from contextlib import contextmanager
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 
@@ -65,6 +65,7 @@ from opensearch_jvector_tpu_torch.parallel.distributed import ShardedVectorIndex
 from opensearch_jvector_tpu_torch.query import knn as knn_mod
 from opensearch_jvector_tpu_torch.query import mmr as mmr_mod
 from opensearch_jvector_tpu_torch.query.builder import parse_knn_query
+from opensearch_jvector_tpu_torch.utils.profiling import phase
 
 _PENDING = object()   # registry reservation while an index is constructed
 _DELETING = object()  # registry tombstone while drop() removes storage
@@ -170,16 +171,14 @@ class IndexManager:
         self.stage_seconds = dict.fromkeys(STAGES, 0.0)
         self._stage_lock = threading.Lock()
 
-    @contextmanager
     def stage(self, name: str):
-        """Add the block's host seconds to `stage_seconds[name]`."""
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
+        """The span `service.<name>`, which adds the block's host seconds
+        to `stage_seconds[name]`."""
+        def add(dt: float) -> None:
             with self._stage_lock:
                 self.stage_seconds[name] += dt
+
+        return phase(f"service.{name}", add_seconds=add)
 
     def _make(self, name: str, field: str, config, n_shards: int = 1):
         """The field's index: sharded when asked for, or when its directory

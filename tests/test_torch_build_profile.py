@@ -7,7 +7,9 @@ Both builders take the same seeded numpy rows. `rounds` and
 `BUILD_PROFILE` set in both modules, `phase_s` holds the same phase names
 in both; with it off, it is empty in both. On the port, a profiled build
 returns the adjacency of an unprofiled one, and with the profile off no
-phase waits on the device (`_sync` is never called).
+phase waits on the device (`_sync` and `torch.cuda.synchronize` are never
+called), while every phase is still a `builder.<phase>` range of a
+profiler that records the build.
 """
 
 import jax.numpy as jnp
@@ -116,17 +118,25 @@ def test_profile_changes_no_edge_and_waits_only_when_on(monkeypatch):
     n, batch, deg = CASES[1]
     rows = torch.from_numpy(_rows(n + N_ADD))
     simf = SimilarityFunction.EUCLIDEAN
-    syncs = []
+    syncs, cuda_syncs = [], []
     monkeypatch.setattr(tbuilder, "_sync", syncs.append)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **kw: cuda_syncs.append(a))
     graphs = {}
     for profile in (False, True):
         monkeypatch.setattr(tbuilder, "BUILD_PROFILE", profile)
         syncs.clear()
         b = _port_builder(batch, deg)
-        g = b.build(rows[:n], simf, capacity=_capacity(n + N_ADD))
-        g = b.add_nodes(g, rows, np.arange(n, n + N_ADD), simf)
-        g = b.cleanup(b.mark_deleted(g, np.arange(0, n, 5)), rows, simf)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            g = b.build(rows[:n], simf, capacity=_capacity(n + N_ADD))
+            g = b.add_nodes(g, rows, np.arange(n, n + N_ADD), simf)
+            g = b.cleanup(b.mark_deleted(g, np.arange(0, n, 5)), rows,
+                          simf)
         graphs[profile] = g
+        ranges = {e.name for e in prof.events()}
+        assert {f"builder.{p}" for p in PHASES} <= ranges
+        assert cuda_syncs == []
         if profile:
             assert len(syncs) > 0 and set(b.counters.phase_s) == PHASES
         else:

@@ -338,17 +338,6 @@ def test_segment_from_numpy_matches_jax_reader(corpus, jax_dir):
         SegmentReader(seg).search(corpus[1], tconfig.SearchConfig(k=K)))
 
 
-def test_phase_trace_written_when_enabled(tmp_path, monkeypatch):
-    from opensearch_jvector_tpu_torch.api.stats import Counter, StatsRegistry
-    from opensearch_jvector_tpu_torch.utils import profiling
-
-    monkeypatch.setenv(profiling.TRACE_DIR_ENV, str(tmp_path))
-    stats = StatsRegistry()
-    with profiling.phase("unit", Counter.KNN_GRAPH_BUILD_TIME, stats):
-        torch.ones(4).sum()
-    assert (tmp_path / "unit.json").stat().st_size > 0
-
-
 @pytest.mark.parametrize("simf", [SimilarityFunction.DOT_PRODUCT,
                                   SimilarityFunction.COSINE],
                          ids=lambda s: s.name)
