@@ -25,6 +25,9 @@ class Counter(Enum):
     KNN_QUERY_EXPANDED_NODES = "knn_query_expanded_nodes"
     KNN_QUERY_EXPANDED_BASE_LAYER_NODES = "knn_query_expanded_base_layer_nodes"
     KNN_GRAPH_SEARCH_TIME = "knn_graph_search_time"
+    # on_disk candidate rows scored by the host rerank kernel
+    # (csrc/host_rerank.cpp); 0 where its numpy fallback ran (the port's own)
+    KNN_QUERY_HOST_RERANK_NATIVE_ROWS = "knn_query_host_rerank_native_rows"
     SCRIPT_QUERY_REQUESTS = "script_query_requests"
     SCRIPT_QUERY_ERRORS = "script_query_errors"
     # index-side

@@ -19,16 +19,18 @@ Port of `opensearch_jvector_tpu/index/reader.py`:
     layer's descent first where the graph has one;
   * on_disk tier (`_tiered_search`): the fp32 rows live in the host row
     store, the approximate phase runs on the device and the exact rerank
-    runs on the host. Its scan tier (flat segments at any size, graph
-    segments up to the bound) takes the first rung the memory circuit
-    breaker allows: the decoded-bf16 cache (2*d bytes per row), else,
-    codes only (M bytes per row), the fused decode-then-score kernel
-    (ops/pq_scan_kernel.py) for batches that bucket to at least
-    FUSED_DECODE_MIN_QUERIES queries, else per-query LUTs and the fused
-    ADC scan. Its beam tier scores with the `pq_decoded` provider, or the
-    codes-only `pq` provider when the cache is refused. Its three stages
-    are profiler ranges (`approximate`, `rerank_gather`, `rerank_score`),
-    so a trace splits a batch's host time between them.
+    runs on the host in a hand-written multi-threaded C++ kernel
+    (`ops/host_rerank.py`; numpy where it cannot be built). Its scan tier
+    (flat segments at any size, graph segments up to the bound) takes the
+    first rung the memory circuit breaker allows: the decoded-bf16 cache
+    (2*d bytes per row), else, codes only (M bytes per row), the fused
+    decode-then-score kernel (ops/pq_scan_kernel.py) for batches that
+    bucket to at least FUSED_DECODE_MIN_QUERIES queries, else per-query
+    LUTs and the fused ADC scan. Its beam tier scores with the
+    `pq_decoded` provider, or the codes-only `pq` provider when the cache
+    is refused. Its three stages are profiler ranges (`approximate`,
+    `rerank_gather`, `rerank_score`), so a trace splits a batch's host
+    time between them.
 Every tier's host steps are spans (`utils/profiling.phase`): the queries'
 upload (`reader.upload`), the accept mask and beam sources
 (`reader.accept`), then inside `query` the work queued on the device
@@ -55,6 +57,7 @@ from opensearch_jvector_tpu_torch.index.segment import Segment
 from opensearch_jvector_tpu_torch.models import searcher as searcher_mod
 from opensearch_jvector_tpu_torch.models.graph import bucket_capacity
 from opensearch_jvector_tpu_torch.models.searcher import SearchParams
+from opensearch_jvector_tpu_torch.ops import host_rerank
 from opensearch_jvector_tpu_torch.ops.adc_kernel import adc_scan
 from opensearch_jvector_tpu_torch.ops.distances import (
     SimilarityFunction,
@@ -567,10 +570,13 @@ class SegmentReader:
                 seg.row_store.prefetch(flat_ids)
                 rows = seg.row_store.gather(flat_ids).reshape(qn, r, -1)
             with phase("rerank_score"):
-                top_i, top_s = _host_rerank(q_host, rows, cand_ids, qualify,
-                                            params, seg.config.similarity)
+                top_i, top_s, native_rows = _host_rerank(
+                    q_host, rows, cand_ids, qualify, params,
+                    seg.config.similarity)
         reranked = int(qualify.sum())
         self._count(qn, filtered, visited, expanded, reranked)
+        self.stats.increment(Counter.KNN_QUERY_HOST_RERANK_NATIVE_ROWS,
+                             native_rows)
         return self._result(top_i, top_s, visited, expanded, reranked)
 
     def _approximate(self, queries, params: SearchParams, accept, r: int,
@@ -622,8 +628,23 @@ def _host_rerank(q_host: np.ndarray, rows: np.ndarray, cand_ids: np.ndarray,
                  qualify: np.ndarray, params: SearchParams,
                  simf: SimilarityFunction):
     """Exact fp32 rerank of the gathered candidate rows [Q, r, d] on the
-    host: argpartition to k, then a stable sort by score -> (ids [Q, k]
-    with -1 pads, scores [Q, k])."""
+    host by the hand-written kernel (`ops/host_rerank.py`), or by numpy
+    where its library cannot be built -> (ids [Q, k] with -1 pads, scores
+    [Q, k], rows the kernel scored: 0 on the numpy path)."""
+    out = host_rerank.rerank_topk(q_host, rows, cand_ids, qualify, params.k,
+                                  params.threshold, simf)
+    if out is not None:
+        return out
+    return (*_host_rerank_numpy(q_host, rows, cand_ids, qualify, params,
+                                simf), 0)
+
+
+def _host_rerank_numpy(q_host: np.ndarray, rows: np.ndarray,
+                       cand_ids: np.ndarray, qualify: np.ndarray,
+                       params: SearchParams, simf: SimilarityFunction):
+    """`_host_rerank` in numpy: `host_candidate_scores`, argpartition to
+    k, then a stable sort by score -> (ids [Q, k] with -1 pads, scores
+    [Q, k])."""
     exact = host_candidate_scores(q_host, rows, simf)
     exact = np.where(qualify, exact, -np.inf)
     if params.k < exact.shape[1]:

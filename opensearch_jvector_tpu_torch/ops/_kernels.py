@@ -1,15 +1,16 @@
 """Build and load the port's native libraries.
 
-Each CUDA kernel source under `csrc/` has a plain C entry point. At first
-use it is compiled with `nvcc` into a shared library under
-`build/torch_kernels/` at the repository root and loaded with `ctypes`;
-PyTorch's headers are kept out, so a build takes seconds. The host row
-store (`native/vector_store.cpp`, shared with the JAX package) is compiled
-the same way with the host C++ compiler and portable flags, so a library
-built on one machine never carries another machine's instruction set. Each
-library name carries a hash of its source and flags, so an edited source
-is rebuilt and never shadowed by a stale build. Nothing here runs when the
-module is imported.
+Each kernel source under `csrc/` has a plain C entry point. At first use
+it is compiled into a shared library under `build/torch_kernels/` at the
+repository root and loaded with `ctypes`: a CUDA source (`.cu`) with
+`nvcc`, with PyTorch's headers kept out, so a build takes seconds; a host
+source (`.cpp`) with the host C++ compiler and portable flags, so a
+library built on one machine never carries another machine's instruction
+set (a host kernel that wants wider vectors picks them at load time with
+`target_clones`). The host row store (`native/vector_store.cpp`, shared
+with the JAX package) is a host build too. Each library name carries a
+hash of its source and flags, so an edited source is rebuilt and never
+shadowed by a stale build. Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -56,11 +57,17 @@ def _cxx() -> str:
 def _source(name: str) -> Path:
     if name == "vector_store":
         return REPO_ROOT / "native" / "vector_store.cpp"
-    return CSRC / f"{name}.cu"
+    host = CSRC / f"{name}.cpp"
+    return host if host.exists() else CSRC / f"{name}.cu"
+
+
+def _is_host(name: str) -> bool:
+    """A `.cpp` source is built by the host compiler, a `.cu` by nvcc."""
+    return _source(name).suffix == ".cpp"
 
 
 def _flags(name: str) -> list[str]:
-    return HOST_CXX_FLAGS if name == "vector_store" else NVCC_FLAGS
+    return HOST_CXX_FLAGS if _is_host(name) else NVCC_FLAGS
 
 
 def library_path(name: str) -> Path:
@@ -71,14 +78,15 @@ def library_path(name: str) -> Path:
 
 
 def build(name: str) -> Path:
-    """Compile source `name` (`csrc/<name>.cu`, or the host row store
-    `vector_store`) unless a build of this exact source exists."""
+    """Compile source `name` (`csrc/<name>.cu` or `csrc/<name>.cpp`, or
+    the host row store `vector_store`) unless a build of this exact source
+    exists."""
     out = library_path(name)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    compiler = _cxx() if name == "vector_store" else _nvcc()
+    compiler = _cxx() if _is_host(name) else _nvcc()
     cmd = [compiler, *_flags(name), "-o", str(tmp), str(_source(name))]
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     BUILD_LOGS[name] = proc.stdout + proc.stderr

@@ -189,13 +189,15 @@ def test_match_all_pages_match(lifecycle, frm, size):
 
 def test_stats_keys_match(lifecycle):
     """The port reports the reference's keys, and beside them its graph
-    build's work counts, which the reference does not count."""
+    build's work counts and the rows its host rerank kernel scored, which
+    the reference does not count."""
     j, t = lifecycle
     a = _req(j, "GET", "/_plugins/_knn/stats")
     b = _req(t, "GET", "/_plugins/_knn/stats")
     assert a[0] == b[0] == 200
     port_only = {"knn_graph_build_nodes", "knn_graph_build_rows_scored",
-                 "knn_graph_build_expanded_nodes"}
+                 "knn_graph_build_expanded_nodes",
+                 "knn_query_host_rerank_native_rows"}
     assert set(b[1]["nodes"]["local"]) == (
         set(a[1]["nodes"]["local"]) | port_only)
 
