@@ -28,6 +28,12 @@ class Counter(Enum):
     # on_disk candidate rows scored by the host rerank kernel
     # (csrc/host_rerank.cpp); 0 where its numpy fallback ran (the port's own)
     KNN_QUERY_HOST_RERANK_NATIVE_ROWS = "knn_query_host_rerank_native_rows"
+    # the host row store's gathers: pages they advised the kernel to read
+    # ahead (csrc/vector_store.cpp), and on_disk rerank gathers served from
+    # their thread's existing block buffer without growing it (the port's
+    # own)
+    KNN_QUERY_ROW_STORE_PAGES_ADVISED = "knn_query_row_store_pages_advised"
+    KNN_QUERY_RERANK_BUFFER_REUSES = "knn_query_rerank_buffer_reuses"
     SCRIPT_QUERY_REQUESTS = "script_query_requests"
     SCRIPT_QUERY_ERRORS = "script_query_errors"
     # index-side

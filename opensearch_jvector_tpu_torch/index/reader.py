@@ -18,11 +18,12 @@ Port of `opensearch_jvector_tpu/index/reader.py`:
     a rerank against NVQ-decoded rows for NVQ segments; the hierarchy
     layer's descent first where the graph has one;
   * on_disk tier (`_tiered_search`): the fp32 rows live in the host row
-    store, the approximate phase runs on the device and the exact rerank
-    runs on the host in a hand-written multi-threaded C++ kernel
-    (`ops/host_rerank.py`; numpy where it cannot be built). Its scan tier
-    (flat segments at any size, graph segments up to the bound) takes the
-    first rung the memory circuit breaker allows: the decoded-bf16 cache
+    store, the approximate phase runs on the device, the candidates' rows
+    are gathered into the calling thread's reused block buffer and the
+    exact rerank runs on the host in a hand-written multi-threaded C++
+    kernel (`ops/host_rerank.py`; numpy where it cannot be built). Its scan
+    tier (flat segments at any size, graph segments up to the bound) takes
+    the first rung the memory circuit breaker allows: the decoded-bf16 cache
     (2*d bytes per row), else, codes only (M bytes per row), the fused
     decode-then-score kernel (ops/pq_scan_kernel.py) for batches that
     bucket to at least FUSED_DECODE_MIN_QUERIES queries, else per-query
@@ -221,11 +222,29 @@ class SegmentReader:
         # searches run from many threads (the REST service): one builds a
         # device cache while the others wait, so it is never built twice
         self._cache_lock = threading.Lock()
+        # on_disk: each searching thread's rerank block buffer (float32),
+        # grown to the largest block it gathered, never shrunk
+        self._rerank_blocks = threading.local()
 
     def close(self) -> None:
-        """Release the segment's host row store (on_disk segments)."""
+        """Release the segment's host row store (on_disk segments) and the
+        rerank block buffers."""
+        self._rerank_blocks = threading.local()
         if self.seg.row_store is not None:
             self.seg.row_store.close()
+
+    def _rerank_buffer(self, size: int) -> np.ndarray:
+        """This thread's rerank block buffer of at least `size` float32
+        values: the one it used before when that is large enough, else a
+        new one that replaces it. The rows gathered into it never leave
+        the search call."""
+        buf = getattr(self._rerank_blocks, "buf", None)
+        if buf is not None and buf.size >= size:
+            self.stats.increment(Counter.KNN_QUERY_RERANK_BUFFER_REUSES)
+            return buf
+        buf = np.empty(size, np.float32)
+        self._rerank_blocks.buf = buf
+        return buf
 
     def _decoded_cache(self) -> torch.Tensor:
         """Decoded-bf16 scoring cache (2*d bytes per row on the device,
@@ -567,8 +586,10 @@ class SegmentReader:
                 qualify &= approx >= params.rerank_floor
             flat_ids = cand_ids.reshape(-1)
             with phase("rerank_gather"):
-                seg.row_store.prefetch(flat_ids)
-                rows = seg.row_store.gather(flat_ids).reshape(qn, r, -1)
+                d = seg.row_store.dim
+                rows = seg.row_store.gather(
+                    flat_ids, out=self._rerank_buffer(flat_ids.size * d),
+                ).reshape(qn, r, d)
             with phase("rerank_score"):
                 top_i, top_s, native_rows = _host_rerank(
                     q_host, rows, cand_ids, qualify, params,

@@ -7,8 +7,8 @@ repository root and loaded with `ctypes`: a CUDA source (`.cu`) with
 source (`.cpp`) with the host C++ compiler and portable flags, so a
 library built on one machine never carries another machine's instruction
 set (a host kernel that wants wider vectors picks them at load time with
-`target_clones`). The host row store (`native/vector_store.cpp`, shared
-with the JAX package) is a host build too. Each library name carries a
+`target_clones`); the host row store `csrc/vector_store.cpp` and the host
+rerank `csrc/host_rerank.cpp` are such builds. Each library name carries a
 hash of its source and flags, so an edited source is rebuilt and never
 shadowed by a stale build. Nothing here runs when the module is imported.
 """
@@ -55,8 +55,6 @@ def _cxx() -> str:
 
 
 def _source(name: str) -> Path:
-    if name == "vector_store":
-        return REPO_ROOT / "native" / "vector_store.cpp"
     host = CSRC / f"{name}.cpp"
     return host if host.exists() else CSRC / f"{name}.cu"
 
@@ -78,9 +76,8 @@ def library_path(name: str) -> Path:
 
 
 def build(name: str) -> Path:
-    """Compile source `name` (`csrc/<name>.cu` or `csrc/<name>.cpp`, or
-    the host row store `vector_store`) unless a build of this exact source
-    exists."""
+    """Compile source `name` (`csrc/<name>.cu` or `csrc/<name>.cpp`)
+    unless a build of this exact source exists."""
     out = library_path(name)
     if out.exists():
         return out

@@ -1,11 +1,14 @@
-"""ctypes binding for the native paged row store (native/vector_store.cpp).
+"""ctypes binding for the port's host row store (`csrc/vector_store.cpp`).
 
 Port of `opensearch_jvector_tpu/utils/native_store.py`: the host tier of
-on_disk segments. fp32 rows live in a raw row file; the rerank gathers
-rows by id with parallel memcpy and madvise prefetch. The library is built
-from the shared C++ source by `ops/_kernels.py` into `build/torch_kernels/`
-with portable flags. Where no host compiler is available the store falls
-back to a numpy memmap (`is_native` says which one serves).
+on_disk segments. fp32 rows live in a raw row file, in the JAX package's
+format; the rerank gathers rows by id over worker threads, each of which
+advises the pages of its share of the ids that the page cache lacks (one
+`mincore` call tells which) and then copies that share, into a block the
+caller may reuse (`gather(ids, out=...)`). The library is built by
+`ops/_kernels.py` into `build/torch_kernels/` with portable flags. Where
+no host compiler is available the store falls back to a numpy memmap
+(`is_native` says which one serves).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from pathlib import Path
 
 import numpy as np
 
+from opensearch_jvector_tpu_torch.api.stats import STATS, Counter
 from opensearch_jvector_tpu_torch.index.store import CorruptSegmentError
 from opensearch_jvector_tpu_torch.ops import _kernels
 
@@ -41,14 +45,15 @@ def _load_lib():
                                 ctypes.c_int64]
         lib.vs_num_rows.restype = ctypes.c_int64
         lib.vs_num_rows.argtypes = [ctypes.c_void_p]
-        lib.vs_gather.restype = ctypes.c_int
+        lib.vs_gather.restype = ctypes.c_int64
         lib.vs_gather.argtypes = [
             ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-            ctypes.c_char_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int,
         ]
-        lib.vs_prefetch.restype = ctypes.c_int
+        lib.vs_prefetch.restype = ctypes.c_int64
         lib.vs_prefetch.argtypes = [
             ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+            ctypes.c_int,
         ]
         lib.vs_close.restype = None
         lib.vs_close.argtypes = [ctypes.c_void_p]
@@ -56,8 +61,27 @@ def _load_lib():
         return lib
 
 
+def _ids(ids) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(ids, np.int64).reshape(-1))
+
+
+def _block(out: np.ndarray, n: int, dim: int) -> np.ndarray:
+    """The [n, dim] view at the start of the caller's buffer `out`."""
+    if not (isinstance(out, np.ndarray) and out.dtype == np.float32
+            and out.flags.c_contiguous and out.flags.writeable):
+        raise ValueError("out must be a writeable C-contiguous float32 "
+                         "array")
+    if out.size < n * dim:
+        raise ValueError(f"out holds {out.size} floats, the gather needs "
+                         f"{n} x {dim} = {n * dim}")
+    return out.reshape(-1)[: n * dim].reshape(n, dim)
+
+
 class PagedVectorStore:
-    """Row store over a raw binary file: rows of `dim` float32 values."""
+    """Row store over a raw binary file: rows of `dim` float32 values.
+
+    The native gather adds the pages it advised to the node's
+    `knn_query_row_store_pages_advised`."""
 
     def __init__(self, path: str | Path, dim: int,
                  threads: int | None = None):
@@ -85,18 +109,24 @@ class PagedVectorStore:
             return int(self._lib.vs_num_rows(self._handle))
         return int(self._mm.shape[0])
 
-    def gather(self, ids) -> np.ndarray:
-        """Fetch rows by id -> [n, dim] f32 (out-of-range ids zero-filled)."""
-        ids = np.ascontiguousarray(np.asarray(ids, np.int64).reshape(-1))
-        out = np.empty((ids.shape[0], self.dim), np.float32)
+    def gather(self, ids, out: np.ndarray | None = None) -> np.ndarray:
+        """Fetch rows by id -> [n, dim] f32 (out-of-range ids zero-filled),
+        a fresh array, or a view of the caller's float32 buffer `out` of
+        at least n * dim floats (ValueError when it is smaller)."""
+        ids = _ids(ids)
+        n = ids.shape[0]
+        if out is None:
+            out = np.empty((n, self.dim), np.float32)
+        else:
+            out = _block(out, n, self.dim)
         if self._handle is not None:
-            rc = self._lib.vs_gather(
+            pages = self._lib.vs_gather(
                 self._handle,
-                ids.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-                ids.shape[0], out.ctypes.data_as(ctypes.c_char_p),
-                self.threads)
-            if rc != 0:
+                ids.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), n,
+                out.ctypes.data, self.threads)
+            if pages < 0:
                 raise RuntimeError(f"vs_gather failed on {self.path}")
+            STATS.increment(Counter.KNN_QUERY_ROW_STORE_PAGES_ADVISED, pages)
             return out
         valid = (ids >= 0) & (ids < self._mm.shape[0])
         out[:] = 0.0
@@ -104,12 +134,15 @@ class PagedVectorStore:
         return out
 
     def prefetch(self, ids) -> None:
+        """Ask the kernel to read ahead the rows' pages, for a caller that
+        overlaps the read with other work before it gathers them (the
+        gather advises its own rows)."""
         if self._handle is None:
             return
-        ids = np.ascontiguousarray(np.asarray(ids, np.int64).reshape(-1))
+        ids = _ids(ids)
         self._lib.vs_prefetch(
             self._handle, ids.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-            ids.shape[0])
+            ids.shape[0], self.threads)
 
     def close(self) -> None:
         if self._handle is not None:

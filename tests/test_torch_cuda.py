@@ -383,6 +383,30 @@ def test_on_disk_codes_only_on_card_matches_cpu(card, corpus, tmp_path,
     assert recall_at_k(got.doc_ids[:64], truth, 10) >= 0.95
 
 
+def test_on_disk_reused_rerank_buffer_on_card_answers_as_fresh(
+        card, corpus, tmp_path, monkeypatch):
+    """The on_disk rerank gathers into its thread's reused block buffer:
+    batches of 1, 64 (grown) and 7 queries (reused) answer bit for bit as
+    the same reader does with a fresh block each batch."""
+    vectors, queries = corpus
+    idx = VectorIndex(tmp_path, DiskAnnConfig(
+        dim=32, num_pq_subspaces=16, mode="on_disk", index_type="flat"),
+        device=card)
+    idx.add_batch(np.arange(vectors.shape[0]), vectors)
+    idx.flush()
+    sc = SearchConfig(k=10)
+    reader = idx._reader(idx.segment_names[0])
+    assert reader.seg.row_store.is_native
+    got = [idx.search(queries[:q], sc) for q in (1, 64, 7)]
+    assert reader._rerank_blocks.buf.size == 64 * 50 * 32
+    monkeypatch.setattr(type(reader), "_rerank_buffer",
+                        lambda self, size: np.empty(size, np.float32))
+    for res, q in zip(got, (1, 64, 7)):
+        want = idx.search(queries[:q], sc)
+        assert res.doc_ids.tobytes() == want.doc_ids.tobytes()
+        assert res.scores.tobytes() == want.scores.tobytes()
+
+
 def test_adc_scan_valid_mask_follows_a_delete_on_card(card, corpus, tmp_path):
     """`delete` changes a segment's tombstones at run time: the next scan
     launches the kernel with the new fused `valid` mask, the deleted docs
