@@ -118,23 +118,24 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
  11. sharded search (after 8b), parallel/: ShardedVectorIndex(<service
      root>/shardy/vec, DiskAnnConfig(dim=128), n_shards=4, device="cuda")
      over phase 4's rows (doc id mod 4: four shards of one 2^18 segment
-     each, flushed side by side). (a) the host fan-out (each shard's own
-     search on the search pool, adc_scan) over --queries queries; (b)
-     attach_mesh(make_mesh(["cuda:0"] * 4)): the mesh path, at the default
-     ef_search (reported) and BEAM_EF (held to the target), exactly one
-     restack per shard registry and no reject; (c) churn: a flush of
-     50,000 rows (a fifth of them updates of live docs) into every shard
-     but the last, then 10,000 deletes: G = 2, a partial restack per shard
-     registry, answers held as 8a holds them (no deleted id, the newest
-     vector's exact score, recall over the live rows); (d) over REST:
+     each, flushed side by side). A sharded search is each shard's own
+     search on the search pool and one host merge; a mesh only places the
+     shards. (a) the shards on "cuda" (adc_scan) over --queries queries at
+     the default ef_search and BEAM_EF; (b) the same directory reopened
+     with mesh=make_mesh(["cuda:0"] * 4): every shard and segment on
+     cuda:0, the answers equal to (a)'s at both ef_search, ms/query
+     reported; (c) churn: a flush of 50,000 rows (a fifth of them updates
+     of live docs) into every shard but the last, then 10,000 deletes,
+     answers held as 8a holds them (no deleted id, the newest vector's
+     exact score, recall over the live rows); (d) over REST:
      KnnService(root, device="cuda", mesh=...), PUT /shardy with
-     number_of_shards 4 attaches the directory: _count, 2-D bodies of 512
-     equal to (c)'s in-process answers, a knn_score l2 script equal to
-     numpy's exact top-10 up to ties, the stats deltas; (e) phase 7's
-     500,000 rows as 4 on_disk shards: the approx-only mesh path and its
-     paged rerank, exact fp32 scores, recall at the target; (f)
-     dryrun(make_mesh(["cuda:0"] * 4)). Reported: ms/query of each path,
-     restack seconds, peak device memory;
+     number_of_shards 4 attaches the directory on the mesh: _count, 2-D
+     bodies of 512 equal to (c)'s in-process answers, a knn_score l2
+     script equal to numpy's exact top-10 up to ties, the stats deltas;
+     (e) phase 7's 500,000 rows as 4 on_disk shards on the mesh: every
+     reranked row scored by the host rerank kernel, exact fp32 scores,
+     recall at the target; (f) dryrun(make_mesh(["cuda:0"] * 4)).
+     Reported: ms/query of each search, peak device memory;
  12. the quantized build: DiskAnnConfig(dim=128, mode="on_disk", m=32,
      num_pq_subspaces=64), build_batch_size 8192 (bench.py's graph tier),
      2,200,000 rows (capacity 2^22) flushed through flush(device_rows=...)
@@ -1716,7 +1717,6 @@ def phase_11(vectors, queries, basis, vv, vq, seed: int, smi: str,
         DiskAnnConfig,
         SearchConfig,
     )
-    from opensearch_jvector_tpu_torch.api.stats import Counter
     from opensearch_jvector_tpu_torch.parallel.distributed import (
         ShardedVectorIndex,
     )
@@ -1726,10 +1726,6 @@ def phase_11(vectors, queries, basis, vv, vq, seed: int, smi: str,
     from opensearch_jvector_tpu_torch.utils.ground_truth import recall_at_k
 
     n, nq, s_n = vectors.shape[0], queries.shape[0], SHARDS
-    rejects = [c.value for c in Counter if c.name.startswith("KNN_MESH_REJECT")]
-    restack = (Counter.KNN_MESH_RESTACK_COUNT.value,
-               Counter.KNN_MESH_RESTACK_PARTIAL_COUNT.value,
-               Counter.KNN_MESH_RESTACK_TIME.value)
     log(f"[11/13] sharded: phase 4's {n} x {DIM} rows in {s_n} shards (doc id "
         f"mod {s_n}), {nq} queries in batches of {BATCH}, k={K}; {smi}")
     gc.collect()
@@ -1754,44 +1750,49 @@ def phase_11(vectors, queries, basis, vv, vq, seed: int, smi: str,
         raise AssertionError("the shards hold another segment set")
     truth = live_truth(queries, vectors, np.arange(n), K)
 
-    # (a) the host fan-out: each shard's own search on the search pool
+    def both_efs(index, what):
+        """Search at the default ef_search and at BEAM_EF -> {ef: (ids,
+        scores, seconds)}, logged with recall."""
+        runs = {cfg.resolved_ef(): search_all(index, queries, cfg)
+                for cfg in (sc, deep)}
+        log(f"  {what}: " + "; ".join(
+            f"ef_search {ef}: {1000 * r[2] / nq:.5f} ms/query batched, "
+            f"recall@{K} {recall_at_k(r[0], truth, K):.4f}"
+            for ef, r in runs.items()))
+        return runs
+
+    # (a) the host fan-out, every shard on the index's device
     idx.search(queries[:BATCH], sc)  # warm: segment loads
     reset_counts()
-    ids, _, wall = search_all(idx, queries, sc)
+    host = both_efs(idx, "(a) host fan-out, shards on cuda")
     launches["sharded_host"] = kernel_counts()
-    recall = recall_at_k(ids, truth, K)
-    log(f"  (a) host fan-out: {1000 * wall / nq:.5f} ms/query batched, "
-        f"recall@{K} {recall:.4f}, launches {launches['sharded_host']}")
+    recall = recall_at_k(host[BEAM_EF][0], truth, K)
+    log(f"  (a) launches {launches['sharded_host']}")
     if recall < RECALL_TARGET or launches["sharded_host"]["adc_scan"] <= 0:
         raise AssertionError("host fan-out: recall or adc_scan missing")
+    idx.close()
 
-    # (b) the mesh path: four shards on one card
+    # (b) the same directory with shard s placed on mesh[s]: four shards on
+    # one card, answering as the fan-out does
     mesh = make_mesh(["cuda:0"] * s_n)
-    idx.attach_mesh(mesh)
-    s0 = idx.stats()
-    idx.search(queries[:BATCH], deep)  # warm: the restack
+    idx = ShardedVectorIndex(root, device="cuda", mesh=mesh)
+    placed = [shard.device for shard in idx.shards] == mesh and all(
+        shard._reader(nm).seg.device == mesh[s]
+        for s, shard in enumerate(idx.shards) for nm in shard.segment_names)
+    idx.search(queries[:BATCH], sc)  # warm: segment loads
     reset_counts()
-    ids_d, _, wall_d = search_all(idx, queries, sc)
-    ids, _, wall = search_all(idx, queries, deep)
+    on_mesh = both_efs(idx, f"(b) mesh {[str(d) for d in mesh]}")
     launches["sharded_mesh"] = kernel_counts()
-    s1 = idx.stats()
-    n_restack, _, restack_ms = _stat_deltas(s0, s1, *restack)
-    n_reject = sum(_stat_deltas(s0, s1, *rejects))
-    rec_d, recall = recall_at_k(ids_d, truth, K), recall_at_k(ids, truth, K)
-    log(f"  (b) mesh {[str(d) for d in mesh]}: ef_search "
-        f"{sc.resolved_ef()}: {1000 * wall_d / nq:.5f} ms/query batched, "
-        f"recall@{K} {rec_d:.4f}; ef_search {BEAM_EF} (held): "
-        f"{1000 * wall / nq:.5f} ms/query batched, recall@{K} {recall:.4f}; "
-        f"restacks {n_restack} (one per shard registry), restack "
-        f"{restack_ms / s_n / 1000:.3f} s, rejects {n_reject}, launches "
-        f"{launches['sharded_mesh']}")
-    if n_restack != s_n or n_reject or idx._mesh_state is None:
-        raise AssertionError("the mesh path was not the one that served")
-    if recall < RECALL_TARGET:
-        raise AssertionError(f"mesh recall@{K} {recall} < {RECALL_TARGET}")
+    same = all((on_mesh[ef][0] == host[ef][0]).all() for ef in host)
+    gap = max(float(np.abs(on_mesh[ef][1] - host[ef][1]).max())
+              for ef in host)
+    log(f"  (b) every shard and segment on its mesh device: {placed}; ids "
+        f"equal to (a)'s at both ef_search: {same}, largest score gap "
+        f"{gap:.3e}; launches {launches['sharded_mesh']}")
+    if not placed or not same or gap > 1e-6:
+        raise AssertionError("the mesh answered otherwise than the fan-out")
 
-    # (c) churn that skips the last shard (so three shards restack), then
-    # deletes
+    # (c) churn that skips the last shard, then deletes
     crng = np.random.default_rng(seed + 11)
     n_upd = CHURN // UPDATE_SHARE
     n_new = CHURN - n_upd
@@ -1815,24 +1816,18 @@ def phase_11(vectors, queries, basis, vv, vq, seed: int, smi: str,
     live[doomed] = False
     rows_dev = torch.as_tensor(rows, device="cuda")
     truth = live_truth(queries, rows, np.nonzero(live)[0], K)
-    s0 = idx.stats()
     reset_counts()
     mem_ids, mem_scores, wall = search_all(idx, queries, deep)
     launches["sharded_churn"] = kernel_counts()
-    s1 = idx.stats()
-    n_restack, n_partial, restack_ms = _stat_deltas(s0, s1, *restack)
     recall = check_live_answers("mesh after the churn", mem_ids, mem_scores,
                                 queries, rows_dev, doomed, truth, K)
-    g = idx._mesh_state.n_segments
+    segs = [len(shard.segment_names) for shard in idx.shards]
     log(f"  (c) churn: flush of {n_new} new docs + {n_upd} updates (shard "
-        f"{s_n - 1} gets none) {flush_s:.2f} s, {CHURN_DELETES} deletes; G "
-        f"{g}; restacks {n_restack}, partial {n_partial}, restack "
-        f"{restack_ms / s_n / 1000:.3f} s; ef_search {BEAM_EF}: "
+        f"{s_n - 1} gets none) {flush_s:.2f} s, {CHURN_DELETES} deletes; "
+        f"segments a shard {segs}; ef_search {BEAM_EF}: "
         f"{1000 * wall / nq:.5f} ms/query batched, recall@{K} {recall:.4f} "
         f"over the live rows, no deleted id, every score the newest "
         f"vector's; launches {launches['sharded_churn']}")
-    if g != 2 or n_partial != s_n or n_restack != s_n:
-        raise AssertionError("the churn did not restack three shards alone")
     idx.close()
     del idx
 
@@ -1845,6 +1840,8 @@ def phase_11(vectors, queries, basis, vv, vq, seed: int, smi: str,
             "settings": {"index": {"number_of_shards": s_n}},
             "mappings": {"properties": {"vec": {"type": "knn_vector",
                                                 "dimension": DIM}}}})
+        served = svc.manager.get("shardy")["vec"]
+        n_segs = sum(len(shard.segment_names) for shard in served.shards)
         count = rest("GET", "/shardy/_count")["count"]
         stats0 = rest("GET", "/_plugins/_knn/stats")["nodes"]["local"]
         reset_counts()
@@ -1879,19 +1876,21 @@ def phase_11(vectors, queries, basis, vv, vq, seed: int, smi: str,
         launches["sharded_rest"] = kernel_counts()
         stats1 = rest("GET", "/_plugins/_knn/stats")["nodes"]["local"]
         deltas = [stats1[c] - stats0[c] for c in (
-            "knn_query_count", "script_query_requests",
-            "knn_mesh_restack_count")]
-        expect = [nq * s_n, 1, s_n]
-        log(f"  (d) REST: PUT /shardy attached {put['shards']} shards, "
-            f"_count {count}; batched bodies of {BATCH} at ef_search "
-            f"{BEAM_EF}: {1000 * wall / nq:.4f} ms/query, ids equal to (c)'s "
+            "knn_query_count", "script_query_requests")]
+        # each shard counts a query once a segment
+        expect = [nq * n_segs, 1]
+        log(f"  (d) REST: PUT /shardy attached {put['shards']} shards on "
+            f"{[str(d) for d in served.mesh or []]}, _count {count}; "
+            f"batched bodies of {BATCH} at ef_search {BEAM_EF}: "
+            f"{1000 * wall / nq:.4f} ms/query, ids equal to (c)'s "
             f"in-process answers: {same}, largest score gap {gap:.3e}; "
             f"knn_score l2 script equal to numpy's exact top-{K} up to ties: "
-            f"{script_ok}; stats deltas (query count, script requests, "
-            f"restacks) {deltas}, expected {expect}; launches "
+            f"{script_ok}; stats deltas (query count, script requests) "
+            f"{deltas}, expected {expect}; launches "
             f"{launches['sharded_rest']}")
         if (count != int(live.sum()) or not same or gap > 1e-6
-                or not script_ok or deltas != expect):
+                or not script_ok or deltas != expect
+                or served.mesh != mesh):
             raise AssertionError("the sharded REST index answered otherwise")
     finally:
         rest.close()
@@ -1901,7 +1900,8 @@ def phase_11(vectors, queries, basis, vv, vq, seed: int, smi: str,
     svc_dir.cleanup()
     serving_peak = torch.cuda.max_memory_allocated()
 
-    # (e) on_disk shards: approx-only on the mesh, paged rerank
+    # (e) on_disk shards on the mesh: each shard's reader reranks on the
+    # host kernel
     n_v = vv.shape[0]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_shardy_disk_") as d:
         didx = ShardedVectorIndex(d, DiskAnnConfig(dim=DIM, mode="on_disk"),
@@ -1912,7 +1912,7 @@ def phase_11(vectors, queries, basis, vv, vq, seed: int, smi: str,
         torch.cuda.synchronize()
         dt = time.monotonic() - t0
         vtruth = live_truth(vq, vv, np.arange(n_v), K)
-        didx.search(vq[:BATCH], sc)  # warm: loads, restack
+        didx.search(vq[:BATCH], sc)  # warm: segment loads
         reset_counts()
         s0 = didx.stats()
         t0 = time.monotonic()
@@ -1924,17 +1924,17 @@ def phase_11(vectors, queries, basis, vv, vq, seed: int, smi: str,
         check_exact_scores("on_disk mesh", ids, scores, vq,
                            torch.as_tensor(vv, device="cuda"))
         recall = recall_at_k(ids, vtruth, K)
-        approx = didx._mesh_state is not None and didx._mesh_state.approx_only
-        reranked = s1["knn_query_reranked_count"] - s0["knn_query_reranked_count"]
+        reranked, native = _stat_deltas(
+            s0, s1, "knn_query_reranked_count",
+            "knn_query_host_rerank_native_rows")
         log(f"  (e) on_disk: {n_v} x {DIM} in {s_n} shards, flush {dt:.2f} s "
-            f"= {n_v / dt:.0f} vec/s; approx-only mesh path {approx}, paged "
-            f"rerank of {reranked} rows over both passes ({wall:.2f} s); held "
+            f"= {n_v / dt:.0f} vec/s; host rerank kernel scored {native} of "
+            f"{reranked} reranked rows over both passes ({wall:.2f} s); held "
             f"at ef_search {held.resolved_ef()}: recall@{K} {recall:.4f}, "
-            f"every score the exact fp32 one, rejects "
-            f"{sum(_stat_deltas(s0, s1, *rejects))}")
+            f"every score the exact fp32 one")
         didx.close()
-        if not approx or recall < RECALL_TARGET or reranked <= 0:
-            raise AssertionError("the on_disk mesh path failed")
+        if recall < RECALL_TARGET or reranked <= 0 or native != reranked:
+            raise AssertionError("the on_disk shards on the mesh failed")
 
     # (f) the dry run over the same mesh
     t0 = time.monotonic()

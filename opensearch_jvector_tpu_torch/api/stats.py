@@ -48,22 +48,6 @@ class Counter(Enum):
     KNN_GRAPH_BUILD_NODES = "knn_graph_build_nodes"
     KNN_GRAPH_BUILD_ROWS_SCORED = "knn_graph_build_rows_scored"
     KNN_GRAPH_BUILD_EXPANDED_NODES = "knn_graph_build_expanded_nodes"
-    # mesh-path state uploads (ShardedVectorIndex): each re-stack re-uploads
-    # shard state to the mesh after the segment set changes; the time
-    # counter records the stall so operators can see churn cost
-    KNN_MESH_RESTACK_COUNT = "knn_mesh_restack_count"
-    KNN_MESH_RESTACK_TIME = "knn_mesh_restack_time"
-    # incremental restacks: only changed shards re-stacked (device-side
-    # slice writes instead of a full-corpus host re-upload)
-    KNN_MESH_RESTACK_PARTIAL_COUNT = "knn_mesh_restack_partial_count"
-    # mesh-eligibility rejections: why a search fell back to the host
-    # scatter-gather loop. Each reason has a distinct operator fix
-    # (compact segments / flush buffers / unify quantization modes), so
-    # drift off the fast path is visible per cause in /_plugins/_knn/stats.
-    KNN_MESH_REJECT_SEGMENT_COUNT = "knn_mesh_reject_segment_count"
-    KNN_MESH_REJECT_BUFFERED_DOCS = "knn_mesh_reject_buffered_docs"
-    KNN_MESH_REJECT_EMPTY_SHARD = "knn_mesh_reject_empty_shard"
-    KNN_MESH_REJECT_STACK_SHAPE = "knn_mesh_reject_stack_shape"
 
 
 class StatsRegistry:

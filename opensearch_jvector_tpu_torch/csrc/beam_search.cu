@@ -3,7 +3,7 @@
 // Replaces the compiled `jax.lax.while_loop` of
 // opensearch_jvector_tpu/models/searcher.py:beam_search (the graph build's
 // insert rounds, delta inserts and refinement, the hierarchy descent, the
-// in_memory and on_disk beam tiers, the mesh engine). The port's plain
+// in_memory and on_disk beam tiers, `sharded_search`). The port's plain
 // version (ops/beam_kernel.py:beam_search_reference) runs the same walk as
 // ~15 launches a step and one host wait a step; here a block walks one
 // query through every step in shared memory and never returns to the host.

@@ -242,18 +242,6 @@ int64_t vs_gather(void* h, const int64_t* ids, int64_t n, char* out,
   });
 }
 
-// Advises the absent pages of the rows' ids (read-ahead to overlap with
-// other work), split over at most `threads` workers as the gather is.
-// Returns the pages advised, or -1 on a bad argument.
-int64_t vs_prefetch(void* h, const int64_t* ids, int64_t n, int threads) {
-  if (!h || n < 0 || (n > 0 && !ids)) return -1;
-  const Store* s = static_cast<Store*>(h);
-  const Residency res(s, ids, n);
-  return split(n, threads, [s, &res, ids](int64_t lo, int64_t hi) {
-    return advise_rows(s, res, ids + lo, hi - lo);
-  });
-}
-
 void vs_close(void* h) {
   if (!h) return;
   Store* s = static_cast<Store*>(h);

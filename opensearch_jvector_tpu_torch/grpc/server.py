@@ -2,9 +2,11 @@
 
 Port of `opensearch_jvector_tpu/grpc/server.py` over the port's
 `IndexManager` (service/http.py): a field's index is a `VectorIndex` or,
-for `number_of_shards` > 1, a `ShardedVectorIndex`, served alike. Only
-this package (grpc/) imports `grpc`; where grpcio is not installed the
-REST service still runs.
+for `number_of_shards` > 1, a `ShardedVectorIndex`, served alike: a
+sharded search is each shard's own `VectorIndex.search` and one host merge,
+with no stacked mesh engine, since a mesh here is devices in one process
+and each shard's reader already runs every tier. Only this package (grpc/)
+imports `grpc`; where grpcio is not installed the REST service still runs.
 
 The reference exposes KNN queries over OpenSearch's gRPC transport by
 registering a QueryBuilderProtoConverter SPI (grpc/proto/request/search/

@@ -72,7 +72,7 @@ class ComputePools:
         self.flush_pool = _NicedExecutor(cores, "jvt-flush")
         self.merge_pool = _NicedExecutor(max(1, cores // 2), "jvt-merge",
                                          nice_increment=2)
-        # shard-level search fan-out (ShardedVectorIndex host fallback).
+        # shard-level search fan-out (ShardedVectorIndex.search).
         # Distinct from flush_pool: shard searches submit their per-segment
         # work to flush_pool, and a single shared pool would deadlock once
         # outer tasks occupy every worker while waiting on inner tasks.

@@ -4,9 +4,13 @@ Port of `opensearch_jvector_tpu/service/http.py`. Every index the service
 makes lives on the service's device (`KnnService(root, device="cuda")` on
 the card, `device="cpu"` for tests); a CUDA service without a card raises
 at construction. `number_of_shards` > 1 makes each field a
-`ShardedVectorIndex`, searched on the service's `mesh` (a device list, see
-`parallel/sharded.py`) where the mesh has one device per shard, else over
-the shards' host fan-out; the stats route folds in the shards' registries.
+`ShardedVectorIndex`: where the service's `mesh` (a device list, see
+`parallel/sharded.py`) has one device per shard, shard s lives on mesh[s],
+else every shard on the service's device. Either way a search is each
+shard's own `VectorIndex.search` and one host merge; there is no stacked
+mesh engine, since a mesh here is devices in one process and each shard's
+reader already runs every tier. The stats route folds in the shards'
+registries.
 
 Routes mirror the reference's user-facing API shape:
   GET  /_plugins/_knn/stats[/{stat}]      node stats
@@ -157,8 +161,8 @@ class IndexManager:
     def __init__(self, root: str | Path, *, device: torch.device | str = "cuda",
                  batcher=None, mesh=None):
         self.device = resolve_device(device)
-        # sharded indexes whose shard count matches the mesh's size search
-        # on the mesh
+        # a sharded index whose shard count matches the mesh's size places
+        # its shards on the mesh
         self.mesh = None if mesh is None else sharded.make_mesh(mesh)
         self.root = Path(root)
         self.root.mkdir(parents=True, exist_ok=True)
@@ -185,12 +189,8 @@ class IndexManager:
         already holds a sharded index (which keeps its own shard count)."""
         root = self.root / name / field
         if n_shards > 1 or (root / "shards.json").exists():
-            idx = ShardedVectorIndex(root, config, n_shards=n_shards,
-                                     device=self.device)
-            # one mesh device per shard, or the shards' host fan-out
-            if self.mesh is not None and len(self.mesh) == idx.n_shards:
-                idx.attach_mesh(self.mesh)
-            return idx
+            return ShardedVectorIndex(root, config, n_shards=n_shards,
+                                      device=self.device, mesh=self.mesh)
         return VectorIndex(root, config, device=self.device)
 
     def indexes(self) -> list:

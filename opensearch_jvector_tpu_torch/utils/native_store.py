@@ -14,9 +14,9 @@ no host compiler is available the store falls back to a numpy memmap
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import struct
-import threading
 import zlib
 from pathlib import Path
 
@@ -26,39 +26,26 @@ from opensearch_jvector_tpu_torch.api.stats import STATS, Counter
 from opensearch_jvector_tpu_torch.index.store import CorruptSegmentError
 from opensearch_jvector_tpu_torch.ops import _kernels
 
-_BIND_LOCK = threading.Lock()
-_BOUND: list = []  # [lib or None] once the first store tried to load it
-
-
+@functools.cache
 def _load_lib():
-    """The bound native library, or None when it cannot be built here."""
-    with _BIND_LOCK:
-        if _BOUND:
-            return _BOUND[0]
-        try:
-            lib = _kernels.load("vector_store")
-        except (OSError, RuntimeError):
-            _BOUND.append(None)
-            return None
-        lib.vs_open.restype = ctypes.c_void_p
-        lib.vs_open.argtypes = [ctypes.c_char_p, ctypes.c_int64,
-                                ctypes.c_int64]
-        lib.vs_num_rows.restype = ctypes.c_int64
-        lib.vs_num_rows.argtypes = [ctypes.c_void_p]
-        lib.vs_gather.restype = ctypes.c_int64
-        lib.vs_gather.argtypes = [
-            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_int,
-        ]
-        lib.vs_prefetch.restype = ctypes.c_int64
-        lib.vs_prefetch.argtypes = [
-            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-            ctypes.c_int,
-        ]
-        lib.vs_close.restype = None
-        lib.vs_close.argtypes = [ctypes.c_void_p]
-        _BOUND.append(lib)
-        return lib
+    """The bound native library, or None when it cannot be built here
+    (tried once a process)."""
+    try:
+        lib = _kernels.load("vector_store")
+    except (OSError, RuntimeError):
+        return None
+    lib.vs_open.restype = ctypes.c_void_p
+    lib.vs_open.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64]
+    lib.vs_num_rows.restype = ctypes.c_int64
+    lib.vs_num_rows.argtypes = [ctypes.c_void_p]
+    lib.vs_gather.restype = ctypes.c_int64
+    lib.vs_gather.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int,
+    ]
+    lib.vs_close.restype = None
+    lib.vs_close.argtypes = [ctypes.c_void_p]
+    return lib
 
 
 def _ids(ids) -> np.ndarray:
@@ -132,17 +119,6 @@ class PagedVectorStore:
         out[:] = 0.0
         out[valid] = self._mm[ids[valid]]
         return out
-
-    def prefetch(self, ids) -> None:
-        """Ask the kernel to read ahead the rows' pages, for a caller that
-        overlaps the read with other work before it gathers them (the
-        gather advises its own rows)."""
-        if self._handle is None:
-            return
-        ids = _ids(ids)
-        self._lib.vs_prefetch(
-            self._handle, ids.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-            ids.shape[0], self.threads)
 
     def close(self) -> None:
         if self._handle is not None:

@@ -351,8 +351,7 @@ def test_walk_reports_exact_ties_as_near():
 # (L, E, M, max_iters, d) of every caller: the insert rounds (ef 100, E 8,
 # cap_deg 38: degree 32 x overflow 1.2), add_nodes / refine_graph (the same
 # rounds), the hierarchy descent (16, 4, upper degree 16, 8), the in_memory
-# beam tier at ef 100 and 200 (E 16), the mesh engine (the same), the
-# on_disk beam segments up to k x overquery^2 = 4,000 at overquery 20 (250
+# beam tier at ef 100 and 200 (E 16), the on_disk beam segments up to k x overquery^2 = 4,000 at overquery 20 (250
 # iterations), degree 48's cap_deg 57, GIST's d = 960
 CALLER_SHAPES = [
     (100, 8, 38, 21, 128), (100, 8, 57, 21, 960), (16, 4, 16, 8, 128),

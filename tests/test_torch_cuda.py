@@ -725,9 +725,10 @@ def test_rest_service_on_card_answers_as_the_inprocess_search(card,
 @pytest.mark.parametrize("mode", ["in_memory", "on_disk"])
 def test_mesh_on_card_matches_cpu(mode, card, corpus, tmp_path):
     """One 3-shard segment set (two segments a shard, some deletes),
-    searched on a mesh of cuda:0 x 3 and of cpu x 3: the same docs (recall
-    of one against the other >= 0.99) and scores where the docs agree; the
-    on_disk set runs the approx-only phase and the paged rerank."""
+    opened with its shards placed on a mesh of cuda:0 x 3 and of cpu x 3:
+    every shard and segment on its mesh device, the same docs (recall of
+    one against the other >= 0.99) and scores where the docs agree; the
+    on_disk set reranks on the host either way."""
     from opensearch_jvector_tpu_torch.parallel.distributed import (
         ShardedVectorIndex,
     )
@@ -743,12 +744,15 @@ def test_mesh_on_card_matches_cpu(mode, card, corpus, tmp_path):
     idx.close()
     out = {}
     for dev in ("cpu", card):
-        sidx = ShardedVectorIndex(tmp_path, device=dev,
-                                  mesh=[dev if dev == "cpu" else "cuda:0"] * 3)
+        place = torch.device("cpu" if dev == "cpu" else "cuda:0")
+        # the coordinator on the CPU: the shards go where the mesh says
+        sidx = ShardedVectorIndex(tmp_path, device="cpu", mesh=[place] * 3)
         out[str(dev)] = sidx.search(queries, SearchConfig(k=10))
-        assert sidx._mesh_state is not None
-        assert sidx._mesh_state.approx_only == (mode == "on_disk")
-        assert sidx.stats()["knn_mesh_restack_count"] == 3
+        assert sidx.mesh == [place] * 3
+        for shard in sidx.shards:
+            assert shard.device == place
+            assert {shard._reader(n).seg.device
+                    for n in shard.segment_names} == {place}
         sidx.close()
     cpu, got = out["cpu"], out[str(card)]
     assert not np.isin(got.doc_ids, np.arange(0, 6000, 50)).any()

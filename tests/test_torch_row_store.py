@@ -138,21 +138,6 @@ def _advised():
     return STATS.get(Counter.KNN_QUERY_ROW_STORE_PAGES_ADVISED)
 
 
-def test_prefetch_of_nothing_or_of_ids_out_of_range_is_a_no_op(rows,
-                                                              row_file):
-    store = native_store.PagedVectorStore(row_file, dim=D)
-    before = _advised()
-    store.prefetch([])
-    store.prefetch(np.array([-1, N, N + 100, 1 << 50]))
-    store.prefetch(np.arange(N))
-    assert store.gather([]).shape == (0, D)
-    assert store.gather([-1, N]).tobytes() == bytes(2 * D * 4)
-    assert _advised() == before
-    ids = _ids(1500, seed=4)
-    assert store.gather(ids).tobytes() == _want(rows, ids).tobytes()
-    store.close()
-
-
 def test_the_gather_counts_the_pages_it_advised(tmp_path):
     """Two rows at either end of a file of 4,096 pages span too many pages
     an id for the mincore check, so each is advised; a cold file (its pages

@@ -1,30 +1,25 @@
-"""Port parity for sharded search: `parallel/sharded.py` (the mesh engine
-over a device list), `parallel/distributed.py` (`ShardedVectorIndex`), the
-REST service's `number_of_shards` and `mesh`, gRPC over a sharded index,
-and the dry run (`parallel/dryrun.py`).
+"""Port parity for sharded search: `parallel/sharded.py` (a mesh is a
+device list), `parallel/distributed.py` (`ShardedVectorIndex`), the REST
+service's `number_of_shards` and `mesh`, gRPC over a sharded index, and the
+dry run (`parallel/dryrun.py`).
 
 The JAX package's `ShardedVectorIndex` writes 3-shard directories of five
-kinds (PQ, `nvq+pq`, `1bit`, fp32, on_disk PQ), each searched by it on a
-3-device slice of the virtual CPU mesh after one flush (G = 1) and after a
-second flush and five deletes (G = 2). The port opens each directory with
-a mesh of ["cpu"] * 3 and answers the same 16 queries: doc ids equal up to
-score ties, scores within rtol 1e-5 / atol 1e-6, and the visited,
-expanded and reranked counters equal (16 queries: the JAX package pads no
-batch). The on_disk kind runs the approx-only phase and the paged rerank
-on both sides; the approximate phases are also held to each other alone.
-A directory the port writes is read by the JAX package the same way.
-The query layer (exact fallback, radial, script, rescore, nested, MMR)
-runs over both packages' sharded indexes on one directory.
+kinds (PQ, `nvq+pq`, `1bit`, fp32, on_disk PQ), each searched by it with no
+mesh (its host fan-out) after one flush (G = 1) and after a second flush
+and five deletes (G = 2). The port opens each directory with its shards
+placed on a mesh of ["cpu"] * 3 and answers the same 16 queries: doc ids
+equal up to score ties, scores within rtol 1e-5 / atol 1e-6, and the
+visited, expanded and reranked counters equal (16 queries: the JAX package
+pads no batch). A directory the port writes is read by the JAX package the
+same way. The query layer (exact fallback, radial, script, rescore,
+nested, MMR) runs over both packages' sharded indexes on one directory.
 
-The port's own behaviour is held to expected values: mesh against host
-fan-out recall within 0.05; the reject reasons and the compaction that
-brings an over-cap shard back; the partial restack (only the changed
-shard is gathered again); `homogenize_pq`'s per-shard cache; a merge
-swapped in during a mesh search (no deleted doc comes back, and no row
-store is gathered from after it was closed).
+The port's own behaviour: a mesh only places the shards, so a search on
+the mesh answers bit for bit as one without it; on_disk shards rerank on
+the host kernel and reuse its block buffers; a merge swapped in during a
+search brings no deleted doc back and gathers from no closed row store.
 """
 
-import contextlib
 import http.client
 import json
 import shutil
@@ -38,6 +33,9 @@ import torch
 
 from opensearch_jvector_tpu.api.config import DiskAnnConfig as JConfig
 from opensearch_jvector_tpu.api.config import SearchConfig as JSearch
+from opensearch_jvector_tpu.ops.distances import (
+    SimilarityFunction as JSimilarity,
+)
 from opensearch_jvector_tpu.parallel import sharded as jsharded
 from opensearch_jvector_tpu.parallel.distributed import (
     ShardedVectorIndex as JSharded,
@@ -53,14 +51,13 @@ from opensearch_jvector_tpu_torch.grpc import knn_query_pb2 as pb
 from opensearch_jvector_tpu_torch.grpc.server import KnnGrpcService, search_stub
 from opensearch_jvector_tpu_torch.index.scheduler import (
     ForceMergesOnlyMergePolicy,
-    TieredMergePolicy,
 )
-from opensearch_jvector_tpu_torch.models import pq as tpq
 from opensearch_jvector_tpu_torch.models.searcher import SearchParams
 from opensearch_jvector_tpu_torch.ops.distances import SimilarityFunction
 from opensearch_jvector_tpu_torch.parallel import sharded
 from opensearch_jvector_tpu_torch.parallel.distributed import ShardedVectorIndex
 from opensearch_jvector_tpu_torch.parallel.dryrun import dryrun
+from opensearch_jvector_tpu_torch.parallel.pools import ComputePools
 from opensearch_jvector_tpu_torch.query import knn
 from opensearch_jvector_tpu_torch.query import mmr
 from opensearch_jvector_tpu_torch.query.builder import KnnQuery, Rescore
@@ -87,7 +84,6 @@ KINDS = {
 SC = dict(k=K, ef_search=48)
 DEAD = [3, 4, 5, 700, 701]
 CPU_MESH = ["cpu"] * S
-REJECTS = [c.value for c in Counter if c.name.startswith("KNN_MESH_REJECT")]
 
 
 def _latent(rng, n):
@@ -132,11 +128,6 @@ def _port(root, mesh=CPU_MESH, **kw):
     return ShardedVectorIndex(root, device="cpu", mesh=mesh, **kw)
 
 
-def _no_rejects(idx):
-    stats = idx.stats()
-    assert not any(stats[r] for r in REJECTS), stats
-
-
 @pytest.fixture(scope="module")
 def jax_dirs(tmp_path_factory, corpus):
     """kind -> {G: (directory, the JAX package's mesh answer)}."""
@@ -144,8 +135,7 @@ def jax_dirs(tmp_path_factory, corpus):
     out = {}
     for kind, kw in KINDS.items():
         root = tmp_path_factory.mktemp(kind)
-        j = JSharded(root / "g2", JConfig(**BASE, **kw), n_shards=S,
-                     mesh=_jmesh())
+        j = JSharded(root / "g2", JConfig(**BASE, **kw), n_shards=S)
         j.add_batch(np.arange(600), v[:600])
         j.flush()
         first = j.search(q, JSearch(**SC))
@@ -154,13 +144,13 @@ def jax_dirs(tmp_path_factory, corpus):
         j.flush()
         j.delete(DEAD)
         second = j.search(q, JSearch(**SC))
-        assert j._mesh_state is not None and j._mesh_state.n_segments == 2
+        assert [len(sh.segment_names) for sh in j.shards] == [2] * S
         j.close()
         out[kind] = {1: (root / "g1", first), 2: (root / "g2", second)}
     return out
 
 
-# -- (a) JAX-written shards, the port's mesh search ------------------------
+# -- (a) JAX-written shards, the port's search on a mesh --------------------
 
 @pytest.mark.parametrize("g", [1, 2])
 @pytest.mark.parametrize("kind", list(KINDS))
@@ -169,48 +159,11 @@ def test_jax_written_shards_search_the_same(jax_dirs, corpus, kind, g):
     idx = _port(root)
     tres = idx.search(corpus[1], SearchConfig(**SC))
     assert_same_result(jres, tres)
-    state = idx._mesh_state
-    assert state.n_segments == g and state.approx_only == (kind == "on_disk")
-    stats = idx.stats()
-    assert stats["knn_mesh_restack_count"] == S
-    assert stats["knn_query_count"] == S * Q
-    _no_rejects(idx)
+    assert [len(sh.segment_names) for sh in idx.shards] == [g] * S
+    # each shard counts a query once a segment
+    assert idx.stats()["knn_query_count"] == g * S * Q
     assert not np.isin(tres.doc_ids, DEAD).any()
     idx.close()
-
-
-def test_approx_phase_matches(jax_dirs, corpus):
-    """The on_disk approx-only phase alone: the same candidate docs (up to
-    ties of the approximate score) and approximate scores."""
-    root, _ = jax_dirs["on_disk"][2]
-    j = JSharded(root, mesh=_jmesh())
-    jlists, _ = j._mesh_ready_segments()
-    jstate = jsharded.stack_engine_state(jlists)
-    t = _port(root)
-    with contextlib.ExitStack() as pins:
-        readers, _, reject = t._mesh_ready_readers(pins)
-        assert reject is None
-        tstate = sharded.stack_engine_state(
-            [[r.seg for r in rs] for rs in readers], t.mesh)
-        params = SearchParams(k=K, ef_search=48)
-        tdocs, tlocs, tsc, tctr = sharded.sharded_engine_search_approx(
-            t.mesh, tstate, torch.from_numpy(corpus[1]), params,
-            SimilarityFunction.EUCLIDEAN)
-    from opensearch_jvector_tpu.models.searcher import SearchParams as JP
-    from opensearch_jvector_tpu.ops.distances import SimilarityFunction as JS
-    jdocs, jlocs, jsc, jctr = jsharded.sharded_engine_search_approx(
-        j.mesh, jstate, corpus[1], JP(k=K, ef_search=48), JS.EUCLIDEAN)
-    assert_same_up_to_ties(jdocs, jsc, tdocs.numpy(), tsc.numpy())
-    np.testing.assert_array_equal(np.asarray(jctr)[:, :2], tctr.numpy()[:, :2])
-    # each locator addresses its doc: shard * (G * n) + slot * n + ordinal
-    g_n, n = tstate.n_segments, tstate.n_local
-    locs, docs = tlocs.numpy(), tdocs.numpy()
-    ok = locs >= 0
-    got = [tstate.ord_to_doc[loc // (g_n * n)][loc // n % g_n][loc % n].item()
-           for loc in locs[ok]]
-    np.testing.assert_array_equal(got, docs[ok])
-    j.close()
-    t.close()
 
 
 def test_port_written_shards_read_by_jax(tmp_path, corpus):
@@ -223,10 +176,9 @@ def test_port_written_shards_read_by_jax(tmp_path, corpus):
     t.delete(DEAD)
     tres = t.search(q, SearchConfig(**SC))
     t.close()
-    j = JSharded(tmp_path, mesh=_jmesh())
+    j = JSharded(tmp_path)
     assert j.n_shards == S
     jres = j.search(q, JSearch(**SC))
-    assert j._mesh_state is not None
     assert_same_result(jres, tres)
     j.close()
 
@@ -237,8 +189,7 @@ def test_port_written_shards_read_by_jax(tmp_path, corpus):
 def nested_dir(tmp_path_factory, corpus):
     """A JAX-written 3-shard PQ index of 900 docs whose docs 0-299 are
     nested children of parents 10,000 + id // 3 (routed by the parent);
-    every shard holds >= 256 rows, so all train 256-entry codebooks and
-    stack for the mesh."""
+    every shard holds >= 256 rows, so all train 256-entry codebooks."""
     root = tmp_path_factory.mktemp("nested")
     v = corpus[0]
     j = JSharded(root, JConfig(**BASE, quantization_type="pq"), n_shards=S)
@@ -258,8 +209,9 @@ QUERY_KINDS = ["exact", "radial", "script", "rescore", "nested", "mmr"]
 @pytest.mark.parametrize("mesh", [False, True], ids=["host", "mesh"])
 def test_query_layer_over_shards_matches(nested_dir, corpus, what, mesh):
     q = corpus[0][[5, 50, 100, 450]] + 0.01
-    j = JSharded(nested_dir, mesh=_jmesh() if mesh else None)
+    j = JSharded(nested_dir)
     t = _port(nested_dir, mesh=CPU_MESH if mesh else None)
+    assert t.mesh == (sharded.make_mesh(CPU_MESH) if mesh else None)
     if what == "exact":  # 30 ids: the filtered exact fallback
         flt = np.arange(1, 900, 30)
         jres = jknn.execute_knn_query(j, JQuery(q, k=K, filter_docs=flt,
@@ -291,9 +243,6 @@ def test_query_layer_over_shards_matches(nested_dir, corpus, what, mesh):
         tres = mmr.mmr_search(t, q, K, mmr.MMRParams(0.5))
     assert_same_result(jres, tres, counters=False)
     assert not np.isin(tres.doc_ids, [7, 400]).any()
-    if mesh and what in ("rescore", "nested", "mmr"):  # ANN first
-        assert t._mesh_state is not None
-        _no_rejects(t)
     j.close()
     t.close()
 
@@ -322,164 +271,94 @@ def _pq_index(root, mesh=CPU_MESH, **kw):
                  n_shards=S, mesh=mesh, **kw)
 
 
-def test_mesh_recall_within_the_host_fan_out(tmp_path, corpus):
-    v, q = corpus
-    idx = _pq_index(tmp_path)
-    for lo, hi in ((0, 600), (600, N)):
-        idx.add_batch(np.arange(lo, hi), v[lo:hi])
-        idx.flush()
-    idx.delete(DEAD)
-    live = np.setdiff1d(np.arange(N), DEAD)
-    truth = live[ground_truth_topk(torch.from_numpy(q),
-                                   torch.from_numpy(v[live]), K,
-                                   SimilarityFunction.EUCLIDEAN)]
-    sc = SearchConfig(**SC)
-    mesh_rec = recall_at_k(idx.search(q, sc).doc_ids, truth, K)
-    assert idx._mesh_state is not None
-    idx.attach_mesh(None)
-    host = idx.search(q, sc)
-    host_rec = recall_at_k(host.doc_ids, truth, K)
-    assert mesh_rec >= 0.9 and abs(mesh_rec - host_rec) <= 0.05
-    # the mesh counts a query once a shard, the host loop once a segment
-    assert idx.stats()["knn_query_count"] == S * Q + 2 * S * Q
-    idx.close()
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_mesh_answers_as_no_mesh(jax_dirs, corpus, kind):
+    """A mesh only places the shards: the same directory searched with its
+    shards on the mesh and with none answers bit for bit alike."""
+    root, _ = jax_dirs[kind][2]
+    out = []
+    for mesh in (CPU_MESH, None):
+        idx = _port(root, mesh=mesh)
+        out.append(idx.search(corpus[1], SearchConfig(**SC)))
+        idx.close()
+    a, b = out
+    np.testing.assert_array_equal(a.doc_ids, b.doc_ids)
+    assert a.scores.tobytes() == b.scores.tobytes()
+    assert ((a.visited, a.expanded, a.reranked)
+            == (b.visited, b.expanded, b.reranked))
 
 
-def _reject_empty(idx, v):
-    idx.add_batch(np.arange(0, 300, S), v[:300:S])  # shard 0 only
-    idx.flush()
-
-
-def _reject_buffered(idx, v):
-    idx.add_batch(np.arange(300), v[:300])
-    idx.flush()
-    idx.add(1000, v[1000])
-
-
-def _reject_stack_shape(idx, v):
-    idx.add_batch(np.arange(300), v[:300])
-    idx.flush()
-
-
-@pytest.mark.parametrize("reason,setup,cfg", [
-    ("empty_shard", _reject_empty, {}),
-    ("buffered_docs", _reject_buffered, {}),
-    ("stack_shape", _reject_stack_shape, dict(index_type="flat")),
-], ids=["empty_shard", "buffered_docs", "stack_shape"])
-def test_rejects_count_their_reason(tmp_path, corpus, reason, setup, cfg):
-    v, q = corpus
-    idx = _port(tmp_path, config=DiskAnnConfig(**BASE, **cfg), n_shards=S)
-    setup(idx, v)
-    res = idx.search(q, SearchConfig(**SC))
-    assert (res.doc_ids >= 0).any()  # the host fan-out answered
-    stats = idx.stats()
-    assert stats[f"knn_mesh_reject_{reason}"] == 1
-    assert sum(stats[r] for r in REJECTS) == 1
-    assert idx._mesh_state is None and stats["knn_mesh_restack_count"] == 0
-    idx.close()
-
-
-def _more(n, seed):
-    """n more rows of the corpus's kind (a flush of >= 256 rows a shard
-    trains 256-entry codebooks, the shape every stacked segment needs)."""
-    return _latent(np.random.default_rng(seed), n)
-
-
-def test_segment_count_reject_compacts_back_onto_the_mesh(tmp_path, corpus):
-    _, q = corpus
-    idx = _pq_index(tmp_path, merge_policy=TieredMergePolicy(
-        max_segments=8, merge_factor=8))
-    cap = ShardedVectorIndex.MESH_MAX_SEGMENTS
-    per = 256 * S
-    rows = _more((cap + 1) * per, 3)
-    for f in range(cap + 1):
-        idx.add_batch(np.arange(f * per, (f + 1) * per),
-                      rows[f * per: (f + 1) * per])
-        idx.flush()
-    sc = SearchConfig(**SC)
-    idx.search(q, sc)
-    assert idx.stats()["knn_mesh_reject_segment_count"] == 1
-    idx.await_merges(timeout=120)  # every shard compacted to the cap
-    assert all(len(s.segment_names) <= cap for s in idx.shards)
-    idx.search(q, sc)
-    assert idx._mesh_state is not None
-    assert idx.stats()["knn_mesh_restack_count"] == S
-    idx.close()
-
-
-def test_partial_restack_gathers_only_the_changed_shard(tmp_path, corpus):
-    v, q = corpus
-    idx = _pq_index(tmp_path)
-    idx.add_batch(np.arange(N), v)
-    idx.flush()
-    sc = SearchConfig(**SC)
-    idx.search(q, sc)
-    before = idx._mesh_state
-    # 300 docs routed to shard 0 only: a second segment there, G 1 -> 2
-    idx.add_batch(np.arange(N, N + 900, S), _more(300, 4))
-    idx.flush()
-    res = idx.search(q, sc)
-    state = idx._mesh_state
-    assert state.n_segments == 2 and state.n_local == before.n_local
-    stats = idx.stats()
-    assert stats["knn_mesh_restack_count"] == 2 * S
-    assert stats["knn_mesh_restack_partial_count"] == S
-    # the unchanged shards kept their first slot and got an empty second
-    for s in (1, 2):
-        assert torch.equal(state.adjacency[s][0], before.adjacency[s][0])
-        assert not state.live[s][1].any()
-    # a fresh full stack of the same segments answers the same
-    lists = [[idx.shards[s]._reader(n).seg for n in idx.shards[s].segment_names]
-             for s in range(S)]
-    fresh = sharded.stack_engine_state(lists, idx.mesh)
-    params = SearchParams(k=K, ef_search=48)
-    a = sharded.sharded_engine_search(idx.mesh, state, torch.from_numpy(q),
-                                      params, SimilarityFunction.EUCLIDEAN)
-    b = sharded.sharded_engine_search(idx.mesh, fresh, torch.from_numpy(q),
-                                      params, SimilarityFunction.EUCLIDEAN)
-    for x, y in zip(a, b):
-        assert torch.equal(x, y)
-    np.testing.assert_array_equal(res.doc_ids, a[0].numpy())
-    idx.close()
-
-
-def test_homogenize_pq_caches_per_shard(tmp_path, corpus):
-    """A small fp32 flush beside PQ segments rides synthetic codes of the
-    donor's codebooks; its name repeats in every shard, and each shard's
-    cache entry encodes that shard's own rows."""
-    v, q = corpus
+def test_shards_open_on_their_mesh_device(tmp_path, corpus):
+    """Shard s's index and every one of its segments live on mesh[s]; a
+    mesh of another size than the shard count places every shard on
+    `device`."""
+    v, _ = corpus
     idx = _pq_index(tmp_path)
     idx.add_batch(np.arange(600), v[:600])
     idx.flush()
-    idx.add_batch(np.arange(600, 690), v[600:690])  # 30 a shard < 64
-    idx.flush()
-    res = idx.search(q, SearchConfig(**SC))
-    _no_rejects(idx)
-    small = [s.segment_names[1] for s in idx.shards]
-    assert len(set(small)) == 1
-    cache = idx._synth_pq_cache
-    assert sorted(cache) == [(s, small[0]) for s in range(S)]
-    for s in range(S):
-        seg = idx.shards[s]._reader(small[s]).seg
-        assert seg.pqv is None
-        pqv = cache[(s, small[s])]
-        np.testing.assert_array_equal(
-            pqv.codes.numpy(),
-            tpq.encode(pqv.pq, seg.vectors, SimilarityFunction.EUCLIDEAN)
-            .numpy())
-    codes = [cache[(s, small[s])].codes[:30] for s in range(S)]
-    assert not torch.equal(codes[0], codes[1])
-    truth = ground_truth_topk(torch.from_numpy(q), torch.from_numpy(v[:690]),
-                              K, SimilarityFunction.EUCLIDEAN)
-    assert recall_at_k(res.doc_ids, truth, K) >= 0.9
+    mesh = sharded.make_mesh(CPU_MESH)
+    assert idx.mesh == mesh
+    for s, shard in enumerate(idx.shards):
+        assert shard.device == mesh[s]
+        assert [shard._reader(n).seg.device
+                for n in shard.segment_names] == [mesh[s]]
+    idx.close()
+    other = _port(tmp_path, mesh=["cpu"] * (S - 1))
+    assert other.mesh is None
+    assert all(sh.device == other.device for sh in other.shards)
+    other.close()
+
+
+@pytest.fixture(scope="module")
+def on_disk_dirs(tmp_path_factory, corpus):
+    """simf -> (a JAX-written 3-shard on_disk PQ directory of that
+    similarity, its answer with no mesh)."""
+    v, q = corpus
+    out = {}
+    for simf in SimilarityFunction:
+        root = tmp_path_factory.mktemp(f"on_disk_{simf.name.lower()}")
+        j = JSharded(root, JConfig(**BASE, quantization_type="pq",
+                                   mode="on_disk",
+                                   similarity=JSimilarity(simf.value)),
+                     n_shards=S)
+        j.add_batch(np.arange(N), v)
+        j.flush()
+        out[simf] = (root, j.search(q, JSearch(**SC)))
+        j.close()
+    return out
+
+
+@pytest.mark.parametrize("simf", list(SimilarityFunction),
+                         ids=[s.name.lower() for s in SimilarityFunction])
+def test_sharded_on_disk_search_reranks_on_the_host(on_disk_dirs, corpus,
+                                                    simf, monkeypatch):
+    """On_disk shards on the mesh answer as the JAX package's with no mesh,
+    every candidate scored by the host rerank kernel; the searches after
+    the first reuse the readers' block buffers."""
+    root, jres = on_disk_dirs[simf]
+    # a fresh search pool: its (at most) S threads each hold a buffer of
+    # every reader by the (S + 1)-th search
+    monkeypatch.setattr(ComputePools, "_instance", None)
+    idx = _port(root)
+    sc = SearchConfig(**SC)
+    tres = idx.search(corpus[1], sc)
+    assert_same_result(jres, tres, counters=False)
+    stats = idx.stats()
+    assert (stats["knn_query_host_rerank_native_rows"]
+            == stats["knn_query_reranked_count"] > 0)
+    reuses = stats["knn_query_rerank_buffer_reuses"]
+    for _ in range(S):
+        again = idx.search(corpus[1], sc)
+        np.testing.assert_array_equal(again.doc_ids, tres.doc_ids)
+    assert idx.stats()["knn_query_rerank_buffer_reuses"] > reuses
     idx.close()
 
 
 def test_a_merge_swapped_in_during_a_mesh_search(tmp_path, corpus,
                                                  monkeypatch):
-    """on_disk shards: the search snapshots shard 0's names and
+    """on_disk shards on the mesh: the search snapshots shard 0's names and
     tombstones, then a force_merge of shard 0 swaps its set (folding the
-    tombstones) before the accept masks and the paged rerank run."""
+    tombstones) before its readers are pinned and its rows gathered."""
     v, q = corpus
     idx = _port(tmp_path, config=DiskAnnConfig(
         **BASE, quantization_type="pq", mode="on_disk"), n_shards=S,
@@ -494,29 +373,32 @@ def test_a_merge_swapped_in_during_a_mesh_search(tmp_path, corpus,
         real = getattr(PagedVectorStore, name)
 
         def spy(self, *a, _real=real, _name=name, **kw):
-            events.append((_name, id(self)))
+            events.append((_name, self))  # held: no id is reused
             return _real(self, *a, **kw)
 
         monkeypatch.setattr(PagedVectorStore, name, spy)
-    real_homog = sharded.homogenize_pq
+    shard0 = idx.shards[0]
+    real_snapshot = shard0.snapshot
     merged = []
 
-    def merge_first(lists, *a, **kw):
+    def snapshot_then_merge():
+        snap = real_snapshot()
         if not merged:
-            merged.append(idx.shards[0].force_merge())
-        return real_homog(lists, *a, **kw)
+            merged.append(None)
+            merged[0] = shard0.force_merge()
+        return snap
 
-    monkeypatch.setattr(sharded, "homogenize_pq", merge_first)
+    monkeypatch.setattr(shard0, "snapshot", snapshot_then_merge)
     # queries at the deleted docs' own rows
     res = idx.search(v[dead[:Q]], SearchConfig(**SC))
-    assert merged and idx.shards[0].segment_names == merged
+    assert merged and shard0.segment_names == merged
     assert not np.isin(res.doc_ids, dead).any()
     closed = set()
     for what, store in events:
         if what == "close":
-            closed.add(store)
+            closed.add(id(store))
         else:
-            assert store not in closed  # never gathered after its close
+            assert id(store) not in closed  # never gathered after its close
     assert closed  # the retired stores closed, after the search
     res2 = idx.search(v[dead[:Q]], SearchConfig(**SC))
     assert not np.isin(res2.doc_ids, dead).any()
@@ -604,7 +486,7 @@ def test_service_serves_sharded_indexes_as_the_jax_service(tmp_path, corpus,
     """The JAX service builds /shardy over REST; the port's service
     attaches a copy of its directory through PUT; both answer alike."""
     v, q = corpus
-    j = JService(tmp_path / "j", mesh=_jmesh() if mesh else None)
+    j = JService(tmp_path / "j")
     j.start()
     assert _req(j, "PUT", "/shardy", SHARDED)[1]["shards"] == S
     docs = [{"_id": i, "vec": v[i].tolist()} for i in range(900)]
@@ -647,10 +529,10 @@ def test_service_serves_sharded_indexes_as_the_jax_service(tmp_path, corpus,
             assert 17 not in ib
         idx = t.manager.get("shardy")["vec"]
         assert isinstance(idx, ShardedVectorIndex)
-        assert (idx._mesh_state is not None) == mesh
+        assert idx.mesh == (sharded.make_mesh(CPU_MESH) if mesh else None)
+        assert [sh.device for sh in idx.shards] == [torch.device("cpu")] * S
         st, stats = _req(t, "GET", "/_plugins/_knn/stats")
         snap = stats["nodes"]["local"]
-        assert snap["knn_mesh_restack_count"] == (S if mesh else 0)
         assert snap["knn_query_count"] >= 2 * S
         assert snap["script_query_requests"] >= 1
     finally:
@@ -668,6 +550,7 @@ def test_service_attaches_a_sharded_directory_and_drops_a_wrong_mesh(
     _req(t, "POST", "/shardy/_bulk",
          {"docs": [{"_id": i, "vec": v[i].tolist()} for i in range(300)]})
     _req(t, "POST", "/shardy/_flush")
+    assert t.manager.get("shardy")["vec"].mesh == sharded.make_mesh(CPU_MESH)
     t.stop()
     t.manager.close()
     # a service whose mesh has 2 devices: the 3-shard index keeps none;
@@ -680,6 +563,7 @@ def test_service_attaches_a_sharded_directory_and_drops_a_wrong_mesh(
         assert _req(t2, "GET", "/shardy/_count")[1]["count"] == 300
         idx = t2.manager.get("shardy")["vec"]
         assert idx.n_shards == S and idx.mesh is None
+        assert all(sh.device == t2.manager.device for sh in idx.shards)
         st, out = _req(t2, "POST", "/shardy/_search", {"size": 1, "query": {
             "knn": {"vec": {"vector": v[42].tolist(), "k": 1}}}})
         assert out["hits"]["hits"][0]["_id"] == 42
@@ -710,7 +594,7 @@ def test_grpc_serves_a_sharded_index(tmp_path, corpus):
             np.testing.assert_array_equal([h.score for h in resp.hits],
                                           res.scores[0])
             assert resp.hits[0].id == i and resp.visited == res.visited > 0
-        assert idx._mesh_state is not None
+        assert idx.mesh == sharded.make_mesh(CPU_MESH)
     finally:
         channel.close()
         svc.stop()
@@ -719,7 +603,7 @@ def test_grpc_serves_a_sharded_index(tmp_path, corpus):
 
 def test_concurrent_mesh_searches_and_merges(tmp_path, corpus):
     """Searches on four threads while every shard is force-merged in turn:
-    the (state, names) pair stays matched, answers stay valid."""
+    answers stay valid, and every shard ends with one segment."""
     v, q = corpus
     idx = _pq_index(tmp_path, merge_policy=ForceMergesOnlyMergePolicy())
     for lo, hi in ((0, 600), (600, N)):
@@ -752,7 +636,7 @@ def test_concurrent_mesh_searches_and_merges(tmp_path, corpus):
             th.join(timeout=120)
     assert not errors, errors[0]
     res = idx.search(q, sc)
-    assert idx._mesh_state.n_segments == 1
+    assert [len(sh.segment_names) for sh in idx.shards] == [1] * S
     truth = np.setdiff1d(np.arange(N), DEAD)
     assert np.isin(res.doc_ids, truth).all()
     assert recall_at_k(res.doc_ids, want.doc_ids, K) >= 0.8
