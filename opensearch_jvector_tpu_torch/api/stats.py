@@ -48,6 +48,10 @@ class Counter(Enum):
     KNN_GRAPH_BUILD_NODES = "knn_graph_build_nodes"
     KNN_GRAPH_BUILD_ROWS_SCORED = "knn_graph_build_rows_scored"
     KNN_GRAPH_BUILD_EXPANDED_NODES = "knn_graph_build_expanded_nodes"
+    # the insert rounds' reverse edges written to a slot and rows sent to
+    # the overflow prune, over flushes and merges (the port's own)
+    KNN_GRAPH_BUILD_REVERSE_EDGES = "knn_graph_build_reverse_edges"
+    KNN_GRAPH_BUILD_OVERFLOW_NODES = "knn_graph_build_overflow_nodes"
 
 
 class StatsRegistry:

@@ -128,6 +128,7 @@ class _Merge:
         self.on_disk = cfg.mode == "on_disk"
         self.host = self.on_disk and cfg.quantization_type != QUANT_NVQ
         self.flat = cfg.index_type == "flat"
+        self.builders: list[GraphIndexBuilder] = []
 
     def stage(self, name: str):
         return _stage(self.timings, name, self.device)
@@ -163,11 +164,13 @@ class _Merge:
 
     def builder(self) -> GraphIndexBuilder:
         cfg = self.cfg
-        return GraphIndexBuilder(
+        b = GraphIndexBuilder(
             dim=cfg.dim, max_degree=cfg.m, beam_width=cfg.ef_construction,
             alpha=cfg.alpha, neighbor_overflow=cfg.neighbor_overflow,
             hierarchy_enabled=cfg.hierarchy_enabled,
             batch_size=self.batch_size)
+        self.builders.append(b)
+        return b
 
     def merged_pq(self, lead: Segment, rows, n_live: int):
         """PQ policy on merge: reuse the lead's codebooks + refine +
@@ -297,6 +300,11 @@ def merge_segments(
         with m.stage("write"):
             path = write_segment(root, seg)
         stats.increment(Counter.KNN_MERGE_COUNT)
+        for b in m.builders:
+            stats.increment(Counter.KNN_GRAPH_BUILD_REVERSE_EDGES,
+                            b.counters.reverse_edges)
+            stats.increment(Counter.KNN_GRAPH_BUILD_OVERFLOW_NODES,
+                            b.counters.overflow_nodes)
         return path
 
 

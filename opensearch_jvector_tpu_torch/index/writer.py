@@ -33,8 +33,8 @@ Port of the flush of `opensearch_jvector_tpu/index/writer.py`:
     `flush` range: `writer.upload`, `writer.quantize` (`writer.pq_train`,
     `writer.pq_encode`, `writer.nvq_train`), `writer.build` (with
     `GraphIndexBuilder`'s `builder.*` spans inside) and `writer.write`; a
-    graph build adds its nodes, rows scored and nodes expanded to the
-    `knn_graph_build_*` counters
+    graph build adds its nodes, rows scored, nodes expanded, reverse edges
+    and overflow rows to the `knn_graph_build_*` counters
 """
 
 from __future__ import annotations
@@ -326,6 +326,10 @@ class IndexWriter:
                                      c.rows_scored)
                 self.stats.increment(Counter.KNN_GRAPH_BUILD_EXPANDED_NODES,
                                      c.expanded)
+                self.stats.increment(Counter.KNN_GRAPH_BUILD_REVERSE_EDGES,
+                                     c.reverse_edges)
+                self.stats.increment(Counter.KNN_GRAPH_BUILD_OVERFLOW_NODES,
+                                     c.overflow_nodes)
         with phase("writer.write"):
             docmap = DocMap(doc_ids,
                             parent_ids if (parent_ids >= 0).any() else None)

@@ -4,10 +4,12 @@ Port of the fp32 path of `opensearch_jvector_tpu/models/builder.py`
 `GraphIndexBuilder.build`: bulk-synchronous insert rounds. Each round
 beam-searches candidate sets for a whole batch of pending inserts, adds
 intra-round candidates, alpha-robust-prunes the batch, writes the forward
-rows, and then computes reverse edges on the host; nodes whose lists
-overflow are re-pruned. Rounds are pipelined as in the reference: round k's
-search runs before round k-1's reverse edges land, so reverse edges land
-one round late (docs/design.md, "pipelined insert rounds").
+rows, and then assigns the reverse edges their slots on the build device
+(`_compute_back_edges`: one stable sort of the round's edges by
+destination); nodes whose lists overflow are re-pruned. Rounds are
+pipelined as in the reference: round k's search runs before round k-1's
+reverse edges land, so reverse edges land one round late
+(docs/design.md, "pipelined insert rounds").
 `add_nodes` delta-inserts new ordinals into an existing graph with the same
 rounds (the incremental merge), `mark_deleted` tombstones nodes,
 `refine_graph` re-searches and re-prunes every node of a finished graph,
@@ -16,8 +18,8 @@ and links every live node that the entry cannot reach. A reverse edge is
 appended only where the destination's row does not hold the source yet, so
 no row carries a neighbour twice.
 
-The adjacency lives on the build device and is updated in place; the host
-keeps only the degree mirror and the small edge lists. There is no batch
+The adjacency and the degrees live on the build device and are updated in
+place; an insert round reads back only its counts. There is no batch
 padding: the reference pads rounds to power-of-two widths only to bound
 XLA compiles. `build(..., pq={"decoded": cache})` scores the insert
 rounds' beam candidates from a bf16 decoded-PQ cache (the on_disk flush's
@@ -37,14 +39,15 @@ distances stay off device memory); on the CPU both run their plain
 versions.
 
 `GraphIndexBuilder.counters` (`BuildCounters`) counts insert rounds,
-inserted nodes, and the rows scored and nodes expanded by the insert
-rounds' walks (read back with the round's own transfer of its prune
-output). Every phase of an insert round and of `cleanup`, and the entry
-point, the bootstrap and the whole cleanup, is a span `builder.<phase>`
-(`utils/profiling.phase`: a profiler range only while a profiler
-records). With `BUILD_PROFILE` on (`JVECTOR_TPU_BUILD_PROFILE=1` at
-import, or the module attribute set), every phase also waits for the
-device at its end and adds its wall-clock seconds to `counters.phase_s`.
+inserted nodes, the rows scored and nodes expanded by the insert rounds'
+walks, the reverse edges written and the rows sent to the overflow prune
+(all read back with the round's one transfer). Every phase of an insert
+round and of `cleanup`, and the entry point, the bootstrap and the whole
+cleanup, is a span `builder.<phase>` (`utils/profiling.phase`: a
+profiler range only while a profiler records). With `BUILD_PROFILE` on
+(`JVECTOR_TPU_BUILD_PROFILE=1` at import, or the module attribute set),
+every phase also waits for the device at its end and adds its wall-clock
+seconds to `counters.phase_s`.
 That serialises the pipelined rounds, so it is for diagnosis only; with
 it off, no phase adds a wait or a transfer.
 """
@@ -154,12 +157,17 @@ def _reachable(adj: torch.Tensor, live: torch.Tensor,
     return reach
 
 
-class _DeviceAdj:
-    """Device-resident adjacency + host degree mirror."""
+def _degrees(graph: VamanaGraph) -> torch.Tensor:
+    """A copy of `graph`'s degrees, int32 on its adjacency's device."""
+    return graph.degrees.to(graph.adjacency.device, torch.int32, copy=True)
 
-    def __init__(self, adj: torch.Tensor, deg: np.ndarray):
+
+class _DeviceAdj:
+    """Device-resident adjacency and degrees."""
+
+    def __init__(self, adj: torch.Tensor, deg: torch.Tensor):
         self.adj = adj  # int32 [capacity, cap_deg]
-        self.deg = deg  # host int32 [capacity]
+        self.deg = deg  # int32 [capacity], on adj's device
 
     @property
     def cap_deg(self) -> int:
@@ -172,29 +180,24 @@ class _DeviceAdj:
         rows[:, : sel.shape[1]] = sel
         self.adj[ids] = rows
 
-    def write_edges(self, dst, slot, src) -> None:
-        """Reverse-edge scatter adj[dst, slot] = src (host index arrays)."""
-        if len(dst) == 0:
-            return
-        dev = self.adj.device
-        self.adj[torch.as_tensor(dst, device=dev),
-                 torch.as_tensor(slot, device=dev)] = torch.as_tensor(
-            src, dtype=torch.int32, device=dev)
-
 
 @dataclasses.dataclass
 class BuildCounters:
     """Insert rounds and inserted nodes over a GraphIndexBuilder's life,
     the rows scored (`visited_count`) and nodes expanded
-    (`expanded_count`) by the insert rounds' walks, and under
-    BUILD_PROFILE the seconds by phase. Nothing counts `nodes_deleted`
-    (tombstones are folded in by `cleanup`, as in the reference)."""
+    (`expanded_count`) by the insert rounds' walks, the reverse edges
+    written to a slot and the rows sent to the overflow prune by every
+    `_round_finish`, and under BUILD_PROFILE the seconds by phase. Nothing
+    counts `nodes_deleted` (tombstones are folded in by `cleanup`, as in
+    the reference)."""
 
     rounds: int = 0
     nodes_inserted: int = 0
     nodes_deleted: int = 0
     rows_scored: int = 0
     expanded: int = 0
+    reverse_edges: int = 0
+    overflow_nodes: int = 0
     phase_s: dict = dataclasses.field(default_factory=dict)
 
     def _phase(self, name: str, dt: float) -> None:
@@ -298,66 +301,85 @@ class GraphIndexBuilder:
         return (rows == ids_t[:, None, None]).any(-1) & (sel >= 0)
 
     def _compute_back_edges(self, deg, new_ids, selected, cap, present):
-        """Host-side reverse-edge slot assignment (deterministic).
+        """Reverse-edge slot assignment on `deg`'s device (deterministic).
 
-        Returns (dst, slot, src) fitting edges plus overflow prune work
-        (overflow_ids, extras). Edges that don't fit become overflow-prune
-        candidates, so the node chooses among (current neighbors ∪ new
-        sources) instead of silently dropping them. `present` [B, ms] marks
-        the edges whose destination row holds the source already
-        (`_edge_present`): they are skipped, so no row gets a neighbour
-        twice.
+        `deg` int32 [capacity] (updated in place), `new_ids` [B] the
+        round's sources, `selected` [B, ms] their pruned lists (-1 pads),
+        `present` [B, ms] bool the edges whose destination row holds the
+        source already (`_edge_present`): those are skipped, so no row gets
+        a neighbour twice. The kept edges are sorted by destination
+        (stable, so in source order within a destination) and take the
+        destination's next free slots; edges past `cap` become overflow
+        prune candidates (the first `extra_width` of a destination), so
+        the node chooses among (current neighbors ∪ new sources) instead
+        of silently dropping them.
+
+        Sizes stay fixed, so nothing waits for the device. Returns (dst,
+        slot, src) [E] int64, overflow ids [E] int64 (sorted), extras
+        [min(E, capacity), extra_width] int32 (-1 padded) and counts [2]
+        int64 = (reverse edges, overflow rows): only the first counts[0]
+        edges and counts[1] overflow ids and extras rows are real.
         """
         b, ms = selected.shape
-        src = np.repeat(new_ids, ms)
-        dst = selected.reshape(-1)
+        e = b * ms
+        capacity = deg.shape[0]
+        dev = deg.device
+        pos = torch.arange(e, device=dev)
+        src = new_ids.long().repeat_interleave(ms)
+        dst = selected.reshape(-1).long()
         keep = (dst >= 0) & ~present.reshape(-1)
-        src, dst = src[keep], dst[keep]
-        empty = (np.empty(0, np.int64),) * 3
-        if dst.size == 0:
-            return (*empty, np.empty(0, np.int64), np.empty((0, 0), np.int32))
-        order = np.argsort(dst, kind="stable")
-        src, dst = src[order], dst[order]
-        group_start = np.searchsorted(dst, dst, side="left")
-        rank = np.arange(dst.size) - group_start
-        slot = deg[dst] + rank
-        ok = slot < cap
-        counts = np.bincount(dst, minlength=deg.shape[0])
-        newdeg = np.minimum(deg + counts, cap)
-        overflow_ids = np.unique(dst[newdeg[dst] >= cap])
-        deg[:] = newdeg
+        # edges not kept sort last, under a key past every row
+        key, order = torch.sort(torch.where(keep, dst, capacity),
+                                stable=True)
+        src = src[order]
+        kept = key < capacity
+        rank = pos - torch.searchsorted(key, key)  # within its destination
+        start = rank == 0
+        d = key.clamp(max=capacity - 1)
+        cur = deg[d].long()
+        slot = cur + rank
+        ok = kept & (slot < cap)
+        incoming = torch.zeros(capacity + 1, dtype=deg.dtype, device=dev)
+        incoming.index_add_(0, key, torch.ones_like(key, dtype=deg.dtype))
+        deg.copy_(torch.clamp(deg + incoming[:capacity], max=cap))
 
-        dropped = ~ok
-        max_extra = self.extra_width  # bounds the overflow-prune C width
-        extras = np.full((overflow_ids.size, max_extra), -1, np.int32)
-        if dropped.any():
-            ddst, dsrc = dst[dropped], src[dropped]
-            dgs = np.searchsorted(ddst, ddst, side="left")
-            drank = np.arange(ddst.size) - dgs
-            sel_rows = np.searchsorted(overflow_ids, ddst)
-            m = drank < max_extra
-            extras[sel_rows[m], drank[m]] = dsrc[m]
-        return dst[ok], slot[ok], src[ok], overflow_ids, extras
+        # one overflow row per destination group that reached `cap`
+        flag = start & kept & (deg[d] >= cap)
+        row = torch.cumsum(flag, 0) - 1  # a group's overflow row
+        overflow = torch.full((e + 1,), -1, dtype=torch.long, device=dev)
+        overflow.scatter_(0, torch.where(flag, row, e), key)
+        # the dropped edges' rank within their group, past the fitting ones
+        drank = rank - torch.clamp(cap - cur, min=0)
+        width = self.extra_width
+        nrow = min(e, capacity)
+        extra_at = torch.where(kept & ~ok & (drank < width),
+                               row * width + drank, nrow * width)
+        extras = torch.full((nrow * width + 1,), -1, dtype=torch.int32,
+                            device=dev)
+        extras.scatter_(0, extra_at, src.to(torch.int32))
 
-    def _prune_overflow(self, st: _DeviceAdj, node_ids, vectors, simf,
-                        extras=None):
-        """Re-prune `node_ids` to max_degree (rows written back) from their
-        rows plus `extras` [len(node_ids), any width] (host array or device
-        tensor, -1 padded).
+        at = torch.where(ok, torch.cumsum(ok, 0) - 1, e)
+        edges = torch.full((3, e + 1), -1, dtype=torch.long, device=dev)
+        edges.scatter_(1, at.expand(3, e), torch.stack([key, slot, src]))
+        counts = torch.stack([ok.sum(), flag.sum()])
+        return (*edges[:, :e], overflow[:e],
+                extras[:-1].view(nrow, width), counts)
+
+    def _prune_overflow(self, st: _DeviceAdj, node_ids: torch.Tensor,
+                        vectors, simf, extras=None):
+        """Re-prune `node_ids` (device tensor) to max_degree (rows and
+        degrees written back) from their rows plus `extras`
+        [len(node_ids), any width] (device tensor, -1 padded).
 
         A node's prune reads only its own row and its extras, so chunking
         over `batch_size` nodes does not change the result."""
-        if node_ids.size == 0:
-            return
-        dev = st.adj.device
         chunk = self.batch_size
-        for s in range(0, node_ids.size, chunk):
-            ids = node_ids[s: s + chunk]
-            ids_t = torch.as_tensor(ids, device=dev)
+        for s in range(0, node_ids.shape[0], chunk):
+            ids_t = node_ids[s: s + chunk]
             cand = st.adj[ids_t]
             if extras is not None and extras.shape[1]:
-                ex = torch.as_tensor(extras[s: s + chunk], device=dev)
-                cand = torch.cat([cand, ex.to(torch.int32)], dim=1)
+                cand = torch.cat([cand, extras[s: s + chunk].to(torch.int32)],
+                                 dim=1)
             cand = cand.long()
             pvecs = vectors[ids_t].float()
             cvecs = vectors[cand.clamp(min=0)].float()
@@ -368,7 +390,7 @@ class GraphIndexBuilder:
             sel = robust_prune(vectors, cand, scores, self.alpha,
                                self.max_degree, simf, point_ids=ids_t)
             st.write_rows(ids_t, sel)
-            st.deg[ids] = (sel >= 0).sum(1).cpu().numpy()
+            st.deg[ids_t] = (sel >= 0).sum(1, dtype=torch.int32)
 
     # -- insert round --------------------------------------------------------
 
@@ -398,36 +420,42 @@ class GraphIndexBuilder:
                                self.max_degree, simf, point_ids=batch_t)
             st.write_rows(batch_t, sel)
             live_dev[batch_t] = True
-        return batch, sel, walk
+        return batch_t, sel, walk
 
     def _round_finish(self, st: _DeviceAdj, pending, vectors, simf):
-        """Host half of an insert round: fetch the prune output (with the
-        round's walk counts, where `pending` carries them), compute
-        reverse-edge slots, apply them, run overflow prunes."""
-        new_ids, sel_dev, walk = pending
+        """Second half of an insert round, on the device: mark the edges
+        already present, assign reverse-edge slots, apply them, run
+        overflow prunes. One small transfer a round: the walk counts (where
+        `pending` carries them) and the counts of reverse edges and
+        overflow rows, which size the apply and the overflow chunks.
+
+        The phase `backedges_host` keeps its name (profile and span) but
+        times the device assignment and that transfer; `sel_fetch` queues
+        the present mask."""
+        ids_t, sel_dev, walk = pending
         dev = sel_dev.device
         with self._phase("sel_fetch", dev):
-            ids_t = torch.as_tensor(new_ids, device=dev)
-            both = torch.stack([sel_dev,
-                                self._edge_present(st, ids_t, sel_dev).long()])
-            if walk is not None:
-                both = torch.cat([both.reshape(-1), walk])
-            host = both.cpu().numpy()  # one transfer
-            if walk is not None:
-                self.counters.rows_scored += int(host[-2])
-                self.counters.expanded += int(host[-1])
-                host = host[:-2].reshape(2, *sel_dev.shape)
-            sel, present = host
+            present = self._edge_present(st, ids_t, sel_dev)
         with self._phase("backedges_host", dev):
-            st.deg[new_ids] = (sel >= 0).sum(axis=1)
-            dst, slot, src, overflowed, extras = self._compute_back_edges(
-                st.deg, new_ids, sel, self.overflow_degree,
-                present.astype(bool))
+            st.deg[ids_t] = (sel_dev >= 0).sum(1, dtype=torch.int32)
+            dst, slot, src, overflowed, extras, counts = (
+                self._compute_back_edges(st.deg, ids_t, sel_dev,
+                                         self.overflow_degree, present))
+            if walk is not None:
+                counts = torch.cat([walk, counts])
+            host = counts.tolist()  # the round's one transfer
+            n_edges, n_over = host[-2:]
+            if walk is not None:
+                self.counters.rows_scored += host[0]
+                self.counters.expanded += host[1]
+            self.counters.reverse_edges += n_edges
+            self.counters.overflow_nodes += n_over
         with self._phase("apply", dev):
-            st.write_edges(dst, slot, src)
+            st.adj[dst[:n_edges], slot[:n_edges]] = src[:n_edges].to(
+                torch.int32)
         with self._phase("overflow", dev):
-            self._prune_overflow(st, overflowed, vectors, simf,
-                                 extras=extras)
+            self._prune_overflow(st, overflowed[:n_over], vectors, simf,
+                                 extras=extras[:n_over])
 
     # -- public API --------------------------------------------------------
 
@@ -462,7 +490,7 @@ class GraphIndexBuilder:
         st = _DeviceAdj(
             torch.full((capacity, cap_deg), -1, dtype=torch.int32,
                        device=dev),
-            np.zeros((capacity,), np.int32),
+            torch.zeros((capacity,), dtype=torch.int32, device=dev),
         )
         live = np.zeros((capacity,), bool)
         live_dev = torch.zeros((capacity,), dtype=torch.bool, device=dev)
@@ -512,7 +540,7 @@ class GraphIndexBuilder:
 
         graph = VamanaGraph(
             adjacency=st.adj,
-            degrees=torch.as_tensor(st.deg, device=dev),
+            degrees=st.deg,
             live=torch.as_tensor(live, device=dev),
             entry=entry,
         )
@@ -535,7 +563,7 @@ class GraphIndexBuilder:
         candidates), then re-apply reverse edges. The adjacency is updated
         in place."""
         dev = graph.adjacency.device
-        st = _DeviceAdj(graph.adjacency, graph.degrees.cpu().numpy().copy())
+        st = _DeviceAdj(graph.adjacency, _degrees(graph))
         vectors = pad_rows(_build_rows(vectors), graph.capacity)
         if pq is not None:
             pq = {"decoded": pad_rows(pq["decoded"], graph.capacity)}
@@ -550,13 +578,11 @@ class GraphIndexBuilder:
                     st.adj, graph.live, graph.entry, vectors,
                     vectors[batch_t].float(), simf, pq)
                 self._prune_overflow(
-                    st, batch, vectors, simf,
+                    st, batch_t, vectors, simf,
                     extras=cand_ids[:, : 2 * self.max_degree])
                 sel = st.adj[batch_t][:, : self.max_degree].long()
-                self._round_finish(st, (batch, sel, None), vectors, simf)
-        return dataclasses.replace(
-            graph, adjacency=st.adj,
-            degrees=torch.as_tensor(st.deg, device=dev))
+                self._round_finish(st, (batch_t, sel, None), vectors, simf)
+        return dataclasses.replace(graph, adjacency=st.adj, degrees=st.deg)
 
     def _delta_chunks(self, n: int) -> list[int]:
         """Round sizes of a delta insert: full `batch_size` rounds, then
@@ -575,9 +601,7 @@ class GraphIndexBuilder:
         """Delta-insert `new_ids` into an existing graph (the incremental
         merge's append into the leading segment's graph). The input graph
         is left as it was."""
-        dev = graph.adjacency.device
-        st = _DeviceAdj(graph.adjacency.clone(),
-                        graph.degrees.cpu().numpy().copy())
+        st = _DeviceAdj(graph.adjacency.clone(), _degrees(graph))
         live_dev = graph.live.clone()
         source = vectors
         vectors = pad_rows(_build_rows(vectors), graph.capacity)
@@ -608,8 +632,7 @@ class GraphIndexBuilder:
             self._round_finish(st, pending, vectors, simf)
         self.counters.nodes_inserted += new_ids.size
         return dataclasses.replace(
-            graph, adjacency=st.adj,
-            degrees=torch.as_tensor(st.deg, device=dev), live=live_dev)
+            graph, adjacency=st.adj, degrees=st.deg, live=live_dev)
 
     @staticmethod
     def mark_deleted(graph: VamanaGraph, ids: np.ndarray) -> VamanaGraph:
@@ -635,8 +658,7 @@ class GraphIndexBuilder:
         # forward rows, then reverse edges exactly like an insert round
         # (bidirectional links)
         st.write_rows(ids_t, sel_t)
-        self._round_finish(st, (np.asarray(ids), sel_t, None), vectors,
-                           simf)
+        self._round_finish(st, (ids_t, sel_t, None), vectors, simf)
 
     def cleanup(self, graph: VamanaGraph, vectors: torch.Tensor,
                 simf: SimilarityFunction) -> VamanaGraph:
@@ -653,8 +675,7 @@ class GraphIndexBuilder:
                  simf: SimilarityFunction) -> VamanaGraph:
         dev = graph.adjacency.device
         with self._phase("cleanup_fetch", dev):
-            st = _DeviceAdj(graph.adjacency,
-                            graph.degrees.cpu().numpy().copy())
+            st = _DeviceAdj(graph.adjacency, _degrees(graph))
             live = graph.live.cpu().numpy()
             live_dev = graph.live
             vectors = pad_rows(_build_rows(vectors), graph.capacity)
@@ -670,11 +691,11 @@ class GraphIndexBuilder:
                 chunk = max(64, min(self.batch_size, SPLICE_GATHER_BYTES
                                     // (width * vectors.shape[1] * 4)))
                 for s in range(0, dead_nodes.size, chunk):
-                    ids = dead_nodes[s: s + chunk]
-                    sel = self._splice_prune(
-                        st, torch.as_tensor(ids, device=dev), live_dev,
-                        vectors, simf)
-                    st.deg[ids] = (sel >= 0).sum(1).cpu().numpy()
+                    ids = torch.as_tensor(dead_nodes[s: s + chunk],
+                                          device=dev)
+                    sel = self._splice_prune(st, ids, live_dev, vectors,
+                                             simf)
+                    st.deg[ids] = (sel >= 0).sum(1, dtype=torch.int32)
 
         with self._phase("cleanup_overflow", dev):
             # rows over the degree bound, and rows that hold a neighbour
@@ -682,11 +703,10 @@ class GraphIndexBuilder:
             # prune keeps one occurrence
             srt = torch.sort(st.adj, dim=1).values
             has_dup = torch.any(
-                (srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0),
-                dim=1).cpu().numpy()
+                (srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0), dim=1)
             del srt
-            over = np.nonzero((st.deg > self.max_degree)
-                              | (has_dup & live))[0]
+            over = torch.nonzero((st.deg > self.max_degree)
+                                 | (has_dup & live_dev))[:, 0]
             self._prune_overflow(st, over, vectors, simf)
 
         with self._phase("cleanup_orphans", dev):
@@ -716,7 +736,7 @@ class GraphIndexBuilder:
             upper = self._build_upper_layer(vectors, live, entry, simf)
         return VamanaGraph(
             adjacency=st.adj,
-            degrees=torch.as_tensor(st.deg, device=dev),
+            degrees=st.deg,
             live=torch.as_tensor(live, device=dev),
             entry=entry,
             upper_adjacency=upper,
@@ -816,11 +836,14 @@ class GraphIndexBuilder:
                 if int(o) not in group:
                     group.append(int(o))
 
-        # fetch only the rows the chained linking can touch
+        # fetch only the rows (and degrees) the chained linking can touch
         need = np.unique(np.concatenate(
             [np.fromiter(host_of.keys(), np.int64, len(host_of)), orphans]))
-        got = st.adj[torch.as_tensor(need, device=dev)].cpu().numpy()
-        row_of = {int(nid): got[i] for i, nid in enumerate(need)}
+        need_t = torch.as_tensor(need, device=dev)
+        got = torch.cat([st.adj[need_t], st.deg[need_t, None]],
+                        dim=1).cpu().numpy()
+        row_of = {int(nid): got[i, :-1] for i, nid in enumerate(need)}
+        deg_of = {int(nid): int(got[i, -1]) for i, nid in enumerate(need)}
         touched: dict[int, np.ndarray] = {}
 
         def _row(nid: int) -> np.ndarray:
@@ -836,9 +859,9 @@ class GraphIndexBuilder:
             row = _row(src)
             if dst in row:
                 return
-            if st.deg[src] < self.max_degree:
-                slot = int(st.deg[src])
-                st.deg[src] += 1
+            if deg_of[src] < self.max_degree:
+                slot = deg_of[src]
+                deg_of[src] += 1
             else:
                 slot = self.max_degree - 1
             row[slot] = dst
@@ -852,6 +875,8 @@ class GraphIndexBuilder:
         if touched:
             hid = np.fromiter(touched.keys(), np.int64, len(touched))
             hrows = np.stack([touched[int(h)] for h in hid])
-            st.adj[torch.as_tensor(hid, device=dev)] = torch.as_tensor(
-                hrows, device=dev)
+            hid_t = torch.as_tensor(hid, device=dev)
+            st.adj[hid_t] = torch.as_tensor(hrows, device=dev)
+            st.deg[hid_t] = torch.as_tensor(
+                [deg_of[int(h)] for h in hid], dtype=torch.int32, device=dev)
         return int(orphans.size)

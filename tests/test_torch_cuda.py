@@ -805,24 +805,72 @@ def test_quantized_build_and_device_rows_on_card(card, corpus, tmp_path):
 
 def test_build_profile_on_card_matches_cpu(card, monkeypatch):
     """A profiled build and delta insert count the same rounds, nodes and
-    phases on the card as on the CPU."""
+    phases on the card as on the CPU. On the card, the graph and the
+    reverse-edge and overflow counts equal those of the same calls with
+    the numpy slot assignment patched in."""
+    from test_torch_backedges import NumpyAssignment
+
     from opensearch_jvector_tpu_torch.models import builder as tbuilder
 
     monkeypatch.setattr(tbuilder, "BUILD_PROFILE", True)
     rows = _latent(np.random.default_rng(20), 21_000)
-    seen = {}
-    for dev in ("cpu", card):
+    seen, graphs = {}, {}
+
+    def build_and_add(dev):
         b = tbuilder.GraphIndexBuilder(dim=32, max_degree=16, beam_width=48)
         x = torch.as_tensor(rows, device=dev)
         g = b.build(x[:20_000], SimilarityFunction.EUCLIDEAN, capacity=1 << 15)
-        b.add_nodes(g, x, np.arange(20_000, 21_000),
-                    SimilarityFunction.EUCLIDEAN)
+        return b, b.add_nodes(g, x, np.arange(20_000, 21_000),
+                              SimilarityFunction.EUCLIDEAN)
+
+    for dev in ("cpu", card):
+        b, graphs[dev] = build_and_add(dev)
         c = b.counters
         assert all(v >= 0.0 for v in c.phase_s.values())
+        assert c.reverse_edges > 0 and c.overflow_nodes > 0
         seen[torch.device(dev).type] = (c.rounds, c.nodes_inserted,
                                         set(c.phase_s))
     assert seen["cuda"] == seen["cpu"]
     assert seen["cuda"][1] == 21_000 and len(seen["cuda"][2]) == 10
+
+    ref = NumpyAssignment()
+    ref.patch(monkeypatch)
+    want_b, want = build_and_add(card)
+    got = graphs[card]
+    assert torch.equal(got.adjacency, want.adjacency)
+    assert torch.equal(got.degrees, want.degrees)
+    assert got.degrees.device == got.adjacency.device
+    assert torch.equal(got.live, want.live) and got.entry == want.entry
+    # the build under test counted what the reference assigned
+    assert (b.counters.reverse_edges, b.counters.overflow_nodes) == (
+        ref.edges, ref.overflow)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "present", "hot"])
+def test_back_edges_on_card_equal_the_numpy_reference(kind, card):
+    """One insert round at the ingest cell's shape (16,384 sources x 32
+    into 2^19 rows, cap 38) assigned on the card equals the numpy
+    reference: edges, overflow ids, extras and degrees."""
+    from test_torch_backedges import assign, random_round, reference_back_edges
+
+    from opensearch_jvector_tpu_torch.models.builder import GraphIndexBuilder
+
+    kw = {"uniform": {"pad": 0.05}, "present": {"present": 0.3},
+          "hot": {"hot": 20_000}}[kind]
+    rng = np.random.default_rng(len(kind))
+    deg, new_ids, sel, present = random_round(rng, 16_384, 32, 1 << 19, 38,
+                                              **kw)
+    want_deg = deg.copy()
+    want = reference_back_edges(want_deg, new_ids, sel, 38, present, 32)
+    b = GraphIndexBuilder(dim=128, max_degree=32)
+    got = assign(b, *(torch.as_tensor(a, device=card)
+                      for a in (deg, new_ids, sel)), 38,
+                 torch.as_tensor(present, device=card))
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(got[5], want_deg)
+    if kind == "hot":
+        assert want[3].size > 0 and (want[4] >= 0).any()
 
 
 def test_ground_truth_stream_on_card_equals_the_scan(card):

@@ -198,6 +198,8 @@ def test_stats_keys_match(lifecycle):
     assert a[0] == b[0] == 200
     port_only = {"knn_graph_build_nodes", "knn_graph_build_rows_scored",
                  "knn_graph_build_expanded_nodes",
+                 "knn_graph_build_reverse_edges",
+                 "knn_graph_build_overflow_nodes",
                  "knn_query_host_rerank_native_rows",
                  "knn_query_row_store_pages_advised",
                  "knn_query_rerank_buffer_reuses"}
