@@ -362,6 +362,12 @@ class SegmentReader:
             visited, expanded, base, reranked = (
                 int(visited), int(expanded), int(base), int(reranked))
         self._count(qn, filtered, visited, expanded, reranked, base)
+        if res.codes_walk_steps:
+            self.stats.increment(Counter.KNN_QUERY_CODES_WALK_STEPS,
+                                 res.codes_walk_steps)
+        if "nvq" in sources:
+            self.stats.increment(Counter.KNN_QUERY_NVQ_RERANKED_COUNT,
+                                 reranked)
         return self._result(ids, scores, visited, expanded, reranked)
 
     def _result(self, ids: np.ndarray, scores: np.ndarray, visited: int,

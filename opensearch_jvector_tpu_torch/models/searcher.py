@@ -44,6 +44,7 @@ reference's pairwise equality masks: [Q, L + V + E*M] keys rather than
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from collections.abc import Callable
 
@@ -60,6 +61,7 @@ from opensearch_jvector_tpu_torch.ops.distances import (
     hamming_scores,
 )
 from opensearch_jvector_tpu_torch.ops.topk import topk_scores
+from opensearch_jvector_tpu_torch.utils.profiling import phase
 
 NEG_INF = float("-inf")
 
@@ -95,6 +97,7 @@ class SearchResult:
     expanded_count: torch.Tensor  # [Q] nodes expanded (all layers)
     reranked_count: torch.Tensor  # [Q]
     expanded_base_count: torch.Tensor  # [Q] base layer only
+    codes_walk_steps: int = 0  # steps of the plain codes walk (both layers)
 
 
 ScoreFn = Callable[[torch.Tensor], torch.Tensor]  # ids [Q, C] -> [Q, C]
@@ -234,6 +237,7 @@ def beam_search(
     masked_results: bool = True,  # False -> skip the accept/live mask
     first_among_ties: bool = False,  # select like the reference where
     # scores tie in long runs (Hamming): the lower slot wins
+    on_steps: Callable[[int], None] | None = None,  # the plain walk's steps
 ):
     """Batched best-first graph search scoring through `score`.
 
@@ -243,16 +247,18 @@ def beam_search(
     results through `accept & live`. A row provider (`ExactProvider`,
     `PQDecodedProvider`) walks in the beam kernel (one launch on a CUDA
     device, its plain version on the CPU); the codes providers walk in the
-    plain loop.
+    plain loop, inside the span `searcher.codes_walk`, and report its
+    steps to `on_steps`.
     """
     if isinstance(score, RowProvider):
         cand_ids, cand_scores, visited_n, expanded_n = beam_kernel.beam_search(
             adjacency, entry, score, q, L, E, max_iters)
     else:
-        cand_ids, cand_scores, visited_n, expanded_n = (
-            beam_kernel.beam_search_reference(
-                adjacency, entry, score, q, L, E, max_iters,
-                first_among_ties=first_among_ties))
+        with phase("searcher.codes_walk"):
+            cand_ids, cand_scores, visited_n, expanded_n = (
+                beam_kernel.beam_search_reference(
+                    adjacency, entry, score, q, L, E, max_iters,
+                    first_among_ties=first_among_ties, on_steps=on_steps))
     topk = _first_topk if first_among_ties else (
         lambda x, k: torch.topk(x, k, dim=1))
 
@@ -303,8 +309,11 @@ def search(
     phase rescores the top `k * overquery_factor` survivors exactly from
     `nvq` (PQ codes only), else `rerank_vectors`, else `vectors`, after
     the `rerank_floor` cut; without a source the approximate scores
-    stand. Then top-k and the `threshold` cut."""
+    stand. Then top-k and the `threshold` cut. The NVQ rerank runs inside
+    the span `searcher.nvq_rerank`; `codes_walk_steps` counts the plain
+    walk's steps."""
     rerank_src = None
+    nvq_rerank = False
     ties = False
     if pq_decoded is not None or pq_codes is not None:
         if pq_decoded is not None:
@@ -314,6 +323,7 @@ def search(
                                 simf)
             if nvq is not None:
                 rerank_src = nvq.decode_rows
+                nvq_rerank = True
         if rerank_src is None:
             rows = rerank_vectors if rerank_vectors is not None else vectors
             if rows is not None:
@@ -333,6 +343,7 @@ def search(
     e = params.expansions_per_iter
     iters = params.resolved_iters()
 
+    steps: list[int] = []  # the plain walks' step counts
     upper_expanded = 0
     if upper_adjacency is not None:
         # hierarchy layer: a short beam on the coarse graph picks each
@@ -340,20 +351,23 @@ def search(
         up_ids, _, _, upper_expanded = beam_search(
             upper_adjacency, live, entry, score, qn, accept,
             L=UPPER_POOL, E=UPPER_EXPANSIONS, R=1, max_iters=UPPER_ITERS,
-            masked_results=False, first_among_ties=ties)
+            masked_results=False, first_among_ties=ties,
+            on_steps=steps.append)
         entry = torch.where(up_ids[:, 0] >= 0, up_ids[:, 0], entry)
     res_ids, res_scores, visited, base_expanded = beam_search(
         adjacency, live, entry, score, qn, accept,
         L=ef, E=e, R=r, max_iters=iters, masked_results=masked_results,
-        first_among_ties=ties,
+        first_among_ties=ties, on_steps=steps.append,
     )
 
     if rerank_src is not None:
         qualify = res_ids >= 0
         if params.rerank_floor > 0.0:  # 0.0 == disabled (reference default)
             qualify &= res_scores >= params.rerank_floor
-        exact = batched_candidate_scores(
-            queries, rerank_src(res_ids.clamp(min=0)).float(), simf)
+        with (phase("searcher.nvq_rerank") if nvq_rerank
+              else contextlib.nullcontext()):
+            exact = batched_candidate_scores(
+                queries, rerank_src(res_ids.clamp(min=0)).float(), simf)
         res_scores = torch.where(qualify, exact, NEG_INF)
         reranked = qualify.sum(1, dtype=torch.int32)
     else:
@@ -369,4 +383,5 @@ def search(
         expanded_count=base_expanded + upper_expanded,
         reranked_count=reranked,
         expanded_base_count=base_expanded,
+        codes_walk_steps=sum(steps),
     )

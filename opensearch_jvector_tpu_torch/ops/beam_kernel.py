@@ -139,7 +139,8 @@ def beam_plan(L: int, E: int, M: int, max_iters: int,
 
 def beam_search_reference(adjacency: torch.Tensor, entry, score, q: int,
                           L: int, E: int, max_iters: int,
-                          first_among_ties: bool = False, tie_bound=None):
+                          first_among_ties: bool = False, tie_bound=None,
+                          on_steps=None):
     """Plain version of the walk: a loop of batched tensor operations, one
     step an iteration, `score(ids [Q, C]) -> [Q, C]` scoring candidates.
 
@@ -148,7 +149,9 @@ def beam_search_reference(adjacency: torch.Tensor, entry, score, q: int,
     on another implementation's score error) it also returns near [Q]
     bool, the queries where a boundary of the walk (the top-E pick or the
     top-L merge) holds two candidates whose scores lie within their bounds
-    of each other, and the pool's bounds [Q, L]."""
+    of each other, and the pool's bounds [Q, L]. `on_steps(n)` is called
+    once with the steps the walk ran (each starts after a host wait on
+    `active`)."""
     dev = adjacency.device
     m = adjacency.shape[1]
     rows = torch.arange(q, device=dev)
@@ -206,6 +209,8 @@ def beam_search_reference(adjacency: torch.Tensor, entry, score, q: int,
             cand_bound = torch.gather(all_bound, 1, idx)
         active = q_active
         it += 1
+    if on_steps is not None:
+        on_steps(it)
     if tie_bound is not None:
         return (cand_ids, cand_scores, visited_n, expanded_n, near,
                 cand_bound)
