@@ -171,7 +171,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      both kernels' bf16 instantiations at the quantized build's shapes
      (phase 12: 8,192-row rounds over bf16 rows), over a bf16 copy of the
      rows: beam_search through the decoded-cache provider and
-     robust_prune at C = 132.
+     robust_prune at C = 132. Last, the walk over PQ codes at
+     portbench's deep4m-nvq batch: a 1,000,000-row cosine graph of d 96
+     built on the card (degree 32), PQ48, 512 queries through the `pq`
+     provider at ef_search 200, held and timed the same way.
 Phases 4, 7, 8a, 12 and 13 count beam_search's and robust_prune's
 launches over their flushes, merges and builds, and hold them above 0
 (phase 12: those over bf16 rows).
@@ -264,6 +267,9 @@ QB_N, QB_SCAN_N, QB_BATCH = 2_200_000, 200_000, 8192
 # queries against ground truth streamed in PROF_BLOCK-row blocks
 PROF_N, PROF_ADD, PROF_Q, PROF_BLOCK = 250_000, 50_000, 2048, 1 << 16
 PROF_DEGREE, PROF_BEAM = 32, 100
+# phase 13's walk over PQ codes at portbench's deep4m-nvq shape (d 96,
+# PQ48, degree 32), over a graph of CODES_N rows
+CODES_N, CODES_DIM, CODES_M = 1_000_000, 96, 48
 # phase 4's flush rate before this phase existed (PERF.md §5)
 EARLIER_FLUSH_VEC_S = 25_000
 ON_DISK_SPANS = ("approximate", "rerank_gather", "rerank_score")
@@ -599,22 +605,28 @@ def check_beam_search(what, adj, entry, prov, q, L, E, iters, reps,
                       plain_reps):
     """beam_search vs beam_search_reference on the card -> record dict.
 
-    Held: where the plain walk has no near tie (`kernel_error_bound`), the
-    same pool as a set, scores within the bound and the same counters;
-    pools overlapping 0.98 on average and the same pool in 80 % of the
-    queries. The bound: the bytes the kernel's own counters say the walk
-    read (visited rows of d values, expanded adjacency rows, the queries,
-    the pool written) over the memory rate."""
+    Held: where the plain walk has no near tie (`kernel_error_bound`; over
+    PQ codes `codes_error_bound`), the same pool as a set, scores within
+    the bound and the same counters; pools overlapping 0.98 on average and
+    the same pool in 80 % of the queries. The bound: the bytes the
+    kernel's own counters say the walk read (visited rows of d values, or
+    of M code bytes, expanded adjacency rows, the queries, the pool
+    written) over the memory rate, or its operations (rows: a dot and a
+    norm of d terms; codes: a dot of d, as `portbench/work/codes_walk.py`
+    counts it) over the float32 peak."""
     from opensearch_jvector_tpu_torch.ops.beam_kernel import (
         beam_search,
         beam_search_reference,
+        codes_error_bound,
         kernel_error_bound,
     )
 
+    codes = hasattr(prov, "codebooks")
+    error_bound = codes_error_bound if codes else kernel_error_bound
     gi, gs, gv, ge = beam_search(adj, entry, prov, q, L, E, iters)
     ids, scores, vis, exp, near, bound = beam_search_reference(
         adj, entry, prov, q, L, E, iters,
-        tie_bound=lambda i: kernel_error_bound(prov, i))
+        tie_bound=lambda i: error_bound(prov, i))
     torch.cuda.synchronize()
     si, so = torch.sort(gi, 1)
     ri, ro = torch.sort(ids, 1)
@@ -640,11 +652,13 @@ def check_beam_search(what, adj, entry, prov, q, L, E, iters, reps,
     ms = cuda_ms(lambda: beam_search(adj, entry, prov, q, L, E, iters), reps)
     plain_ms = cuda_ms(lambda: beam_search_reference(adj, entry, prov, q, L,
                                                      E, iters), plain_reps)
-    d = prov.rows.shape[1]
-    nbytes = (int(gv.sum()) * d * prov.rows.element_size()
+    d = prov.prepared()[0].shape[1]
+    row_bytes = (prov.codes.shape[1] if codes
+                 else d * prov.rows.element_size())
+    nbytes = (int(gv.sum()) * row_bytes
               + int(ge.sum()) * adj.shape[1] * 4 + q * d * 4 + q * L * 12)
-    bound_ms, bound_by = bound_of(nbytes, 4.0 * d * int(gv.sum()),
-                                  PEAK_F32_S)
+    bound_ms, bound_by = bound_of(nbytes, (2.0 if codes else 4.0) * d
+                                  * int(gv.sum()), PEAK_F32_S)
     log(f"  beam_search {what}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}: {int(gv.sum())} rows scored, "
         f"{int(ge.sum())} expanded); no single library call computes this "
@@ -865,14 +879,19 @@ def reset_counts() -> None:
         k.launches = 0
         if k.__name__ in BF16_KERNELS:
             k.bf16_launches = 0
+        if k.__name__ == "beam_search":
+            k.codes_launches = 0
 
 
 def kernel_counts() -> dict:
-    """Every kernel's launches since the last reset_counts(), and as
-    `<name>_bf16` those of the graph build's kernels over bf16 rows."""
+    """Every kernel's launches since the last reset_counts(), as
+    `<name>_bf16` those of the graph build's kernels over bf16 rows, and
+    as `beam_search_codes` the walk's over PQ codes."""
     counts = {k.__name__: k.launches for k in path_kernels()}
     counts.update({f"{k.__name__}_bf16": k.bf16_launches
                    for k in path_kernels() if k.__name__ in BF16_KERNELS})
+    counts["beam_search_codes"] = next(
+        k for k in path_kernels() if k.__name__ == "beam_search").codes_launches
     return counts
 
 
@@ -2243,8 +2262,47 @@ def phase_13(rows: np.ndarray, queries: np.ndarray, basis, seed: int,
     del x, xb, graphs, merged, g, batch
     gc.collect()
     torch.cuda.empty_cache()
+    recs["beam_search_codes"] = check_codes_walk(seed)
     log(f"  phase 13: {time.monotonic() - t_phase:.1f} s")
     return recs
+
+
+def check_codes_walk(seed: int) -> dict:
+    """The walk over PQ codes at `portbench`'s `deep4m-nvq` batch: a graph
+    of CODES_N cosine rows of d 96 built on the card (degree 32), PQ48 (K
+    256) trained and encoded there, 512 queries through the `pq` provider
+    at ef_search 200 (L 200, E 16, 13 steps), held and timed by
+    check_beam_search."""
+    from opensearch_jvector_tpu_torch.models import builder as builder_mod
+    from opensearch_jvector_tpu_torch.models import pq as pq_mod
+    from opensearch_jvector_tpu_torch.models import searcher as searcher_mod
+    from opensearch_jvector_tpu_torch.ops.distances import SimilarityFunction
+
+    t0 = time.monotonic()
+    simf = SimilarityFunction.COSINE
+    rows, queries, _ = make_data(np.random.default_rng(seed + 96), CODES_N,
+                                 BATCH, CODES_DIM)
+    x = torch.as_tensor(rows, device="cuda")
+    g = builder_mod.GraphIndexBuilder(
+        dim=CODES_DIM, max_degree=PROF_DEGREE, beam_width=PROF_BEAM).build(
+            x, simf)
+    pq = pq_mod.train_pq(x, simf, CODES_M)
+    prov = searcher_mod.CodesProvider(
+        torch.as_tensor(queries, device="cuda"), pq_mod.encode(pq, x, simf),
+        pq.codebooks, pq.center, simf)
+    torch.cuda.synchronize()
+    log(f"  codes walk: graph of {CODES_N} rows (d {CODES_DIM}, degree "
+        f"{PROF_DEGREE}) and PQ{CODES_M} built in "
+        f"{time.monotonic() - t0:.1f} s")
+    p = searcher_mod.SearchParams(k=K, ef_search=BEAM_EF)
+    rec = check_beam_search(
+        f"PQ{CODES_M} codes, {BATCH} queries, ef_search {BEAM_EF}",
+        g.adjacency, g.entry, prov, BATCH, BEAM_EF, p.expansions_per_iter,
+        p.resolved_iters(), reps=10, plain_reps=2)
+    del x, g, prov
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 
 def main() -> int:
@@ -2986,6 +3044,12 @@ def main() -> int:
          "replaces": "opensearch_jvector_tpu/models/builder.py:93",
          "launches": total["robust_prune_bf16"],
          **build_recs["robust_prune_bf16"]},
+        # the walk's instantiation over PQ codes (the `pq` provider)
+        {"name": "beam_search (PQ codes)", "route": "cuda",
+         "source": "opensearch_jvector_tpu_torch/csrc/beam_search.cu",
+         "replaces": "opensearch_jvector_tpu/models/searcher.py:179",
+         "launches": total["beam_search_codes"],
+         **build_recs["beam_search_codes"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -34,10 +34,12 @@ class Counter(Enum):
     # own)
     KNN_QUERY_ROW_STORE_PAGES_ADVISED = "knn_query_row_store_pages_advised"
     KNN_QUERY_RERANK_BUFFER_REUSES = "knn_query_rerank_buffer_reuses"
-    # the plain beam walk over codes (the `pq` and `hamming` providers):
-    # its steps, one host wait each, and the rows reranked from the NVQ
-    # decode (the port's own)
+    # the beam walk over codes: the plain walk's steps, one host wait each
+    # (the `hamming` provider, and every walk on the CPU), the kernel's
+    # launches (the `pq` provider on a card), and the rows reranked from
+    # the NVQ decode (the port's own)
     KNN_QUERY_CODES_WALK_STEPS = "knn_query_codes_walk_steps"
+    KNN_QUERY_CODES_WALK_LAUNCHES = "knn_query_codes_walk_launches"
     KNN_QUERY_NVQ_RERANKED_COUNT = "knn_query_nvq_reranked_count"
     SCRIPT_QUERY_REQUESTS = "script_query_requests"
     SCRIPT_QUERY_ERRORS = "script_query_errors"

@@ -17,6 +17,21 @@
 // pool needs ~13 KB of shared memory) hide the latency. The control work
 // of a step (pick, dedup, sort, merge) runs from shared memory.
 //
+// Scoring is a policy of the kernel (`Score<T, SIMF>`), picked at compile
+// time by the type of what the walk scores; the control steps are shared.
+// Rows (T = float or bf16): the above. PQ codes (T = uint8_t, the `pq`
+// provider over an NVQ segment's auxiliary codes): a candidate is M code
+// bytes (48 at PQ48), ~10x fewer bytes than an fp32 row, but each code
+// names a codebook row; reading those through L1 a candidate took 2.7-4.4x
+// the time of a table at PQ48 (PERF.md §6). So at the start the
+// block builds its query's ADC table in shared memory, T[m][k] = sum_j
+// q[m dsub + j] cb[m][k][j] in float32 (M x K floats: 48 KB at PQ48, K
+// 256), in place of the query; then a thread scores a candidate: 16-byte
+// loads of its codes (the loads of all the block's candidates in flight
+// at once) and M table lookups, dot = sum_m T[m][code_m]; for euclidean c2
+// = sum_m C[m][code_m] from one table of centroid squared norms a launch
+// (`cnorm`, cached in L1), then the plain chain as for rows.
+//
 // Every shape the callers may ask for runs here. Where one block's state
 // (`beam_layout`) outgrows the 227 KB of shared memory a Hopper block may
 // use (a wide pool: k in the thousands, or a wide adjacency), the same
@@ -47,8 +62,10 @@
 // clamp at 0, 1 / (1 + d2); dot (1 + dot) / 2; cosine (1 + dot / |c|) / 2
 // with the queries normalised by the caller. bf16 rows (the decoded PQ
 // cache) round the candidate's squared norm, and for cosine its inverse
-// norm, to bf16 as PQDecodedProvider does. Only the order of the float32
-// sums differs from the plain version.
+// norm, to bf16 as PQDecodedProvider does. PQ codes score as the `pq`
+// provider's decode does (euclidean or dot product; cosine corpora as a
+// dot product of normalised queries). Only the order of the float32 sums
+// differs from the plain version.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,7 +86,8 @@ __host__ __device__ inline size_t align16(size_t x) {
 }
 
 // Shared-memory layout of one block; ops/beam_kernel.py:beam_smem_bytes
-// mirrors it region by region.
+// mirrors it region by region. `d` is the floats of the scoring state at
+// the front: the query (rows) or its ADC table (codes, M x K).
 struct BeamLayout {
   size_t qv, pool_s, pool_id, pool_x, ring, pick, nb_id, nb_slot, sv_id,
       sv_key, red, scratch, total;
@@ -250,9 +268,9 @@ __device__ __forceinline__ int hash_insert(int* keys, int* tags, int hbits,
 struct BeamParams {
   const int32_t* adj;
   int m;
-  const void* rows;
+  const void* rows;  // rows [N, d] float or bf16, or codes [N, msub] uint8
   int d;
-  int vec;
+  int vec;  // a row (codes row) may be read in 16-byte loads
   const float* queries;
   const float* qnorm2;
   const int64_t* entries;
@@ -262,17 +280,126 @@ struct BeamParams {
   float* out_scores;
   int32_t* out_visited;
   int32_t* out_expanded;
+  // codes: codebooks [msub, ksub, d / msub]; for euclidean the centroids'
+  // squared norms [msub, ksub]
+  const float* codebooks;
+  const float* cnorm;
+  int msub, ksub;
+};
+
+// How a block scores candidates. Rows (float or bf16): the query sits in
+// the state region (d floats) and a warp scores a row.
+template <typename T, int SIMF>
+struct Score {
+  __device__ static int state_floats(const BeamParams& p) { return p.d; }
+
+  __device__ static void prepare(const BeamParams& p, int qi, float* qv,
+                                 int tid) {
+    for (int i = tid; i < p.d; i += kThreads)
+      qv[i] = p.queries[int64_t(qi) * p.d + i];
+  }
+
+  // every lane of a warp calls it; every lane returns the score
+  __device__ static float one(const BeamParams& p, const float* qv,
+                              float q2, int id, int lane) {
+    return score_row<T, SIMF>(static_cast<const T*>(p.rows), id, p.d,
+                              p.vec != 0, qv, q2, lane);
+  }
+
+  // the keys of candidates ids[0, n): the score's descending bits, then s
+  __device__ static void many(const BeamParams& p, const float* qv,
+                              float q2, const int* ids, int n,
+                              unsigned long long* keys, int tid) {
+    const int lane = tid & 31, warp = tid >> 5;
+    for (int s = warp; s < n; s += kWarps) {
+      const float sc = one(p, qv, q2, ids[s], lane);
+      if (lane == 0)
+        keys[s] = (static_cast<unsigned long long>(desc_bits(sc)) << 32) |
+                  unsigned(s);
+    }
+  }
+};
+
+// PQ codes: the query's ADC table sits in the state region (msub x ksub
+// floats) and a thread scores a candidate.
+template <int SIMF>
+struct Score<uint8_t, SIMF> {
+  static_assert(SIMF == 0 || SIMF == 1, "codes score euclidean or dot");
+
+  __device__ static int state_floats(const BeamParams& p) {
+    return p.msub * p.ksub;
+  }
+
+  // table[m][k] = sum_j q[m dsub + j] cb[m][k][j], a float32 chain over j
+  __device__ static void prepare(const BeamParams& p, int qi, float* table,
+                                 int tid) {
+    const int dsub = p.d / p.msub, n = p.msub * p.ksub;
+    const float* q = p.queries + int64_t(qi) * p.d;
+    for (int e = tid; e < n; e += kThreads) {
+      const float* qm = q + (e / p.ksub) * dsub;
+      const float* c = p.codebooks + int64_t(e) * dsub;
+      float t = 0.f;
+      for (int j = 0; j < dsub; ++j) t = fmaf(__ldg(qm + j), __ldg(c + j), t);
+      table[e] = t;
+    }
+  }
+
+  __device__ static float one(const BeamParams& p, const float* table,
+                              float q2, int id, int lane) {
+    const int M = p.msub, K = p.ksub;
+    const uint8_t* row = static_cast<const uint8_t*>(p.rows) + int64_t(id) * M;
+    float dot = 0.f, c2 = 0.f;  // summed in the order of the subspaces
+    if (p.vec) {
+      for (int m0 = 0; m0 < M; m0 += 64) {
+        uint4 raw[4];  // up to 64 codes, the loads issued together
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (m0 + 16 * c < M)
+            raw[c] = __ldg(reinterpret_cast<const uint4*>(row + m0 + 16 * c));
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (m0 + 16 * c >= M) break;
+          const unsigned w[4] = {raw[c].x, raw[c].y, raw[c].z, raw[c].w};
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int m = m0 + 16 * c + i;
+            const int k = (w[i >> 2] >> (8 * (i & 3))) & 0xff;
+            dot += table[m * K + k];
+            if (SIMF == 0) c2 += __ldg(p.cnorm + m * K + k);
+          }
+        }
+      }
+    } else {
+      for (int m = 0; m < M; ++m) {
+        const int k = __ldg(row + m);
+        dot += table[m * K + k];
+        if (SIMF == 0) c2 += __ldg(p.cnorm + m * K + k);
+      }
+    }
+    return finish_score<float, SIMF>(dot, c2, q2);
+  }
+
+  __device__ static void many(const BeamParams& p, const float* table,
+                              float q2, const int* ids, int n,
+                              unsigned long long* keys, int tid) {
+    for (int s = tid; s < n; s += kThreads) {
+      const float sc = one(p, table, q2, ids[s], 0);
+      keys[s] = (static_cast<unsigned long long>(desc_bits(sc)) << 32) |
+                unsigned(s);
+    }
+  }
 };
 
 template <typename T, int SIMF, bool G>
 __global__ void __launch_bounds__(kThreads)
     beam_search_kernel(const BeamParams p) {
+  using S = Score<T, SIMF>;
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   const int qi = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int L = p.L, E = p.E, M = p.m, d = p.d;
+  const int L = p.L, E = p.E, M = p.m;
   const int EM = E * M, V = p.iters * E;
-  const BeamLayout lay = beam_layout(L, E, M, p.iters, d);
+  const BeamLayout lay = beam_layout(L, E, M, p.iters, S::state_floats(p));
   unsigned char* smem = G ? p.ws + size_t(qi) * lay.total : dyn_smem;
   float* qv = reinterpret_cast<float*>(smem + lay.qv);
   float* pool_s = reinterpret_cast<float*>(smem + lay.pool_s);
@@ -294,11 +421,8 @@ __global__ void __launch_bounds__(kThreads)
   float* out_s = reinterpret_cast<float*>(smem + lay.scratch);
   int* out_id = reinterpret_cast<int*>(smem + lay.scratch + align16(4 * size_t(L)));
   unsigned char* out_x = smem + lay.scratch + 2 * align16(4 * size_t(L));
-  const T* rows = static_cast<const T*>(p.rows);
-  const bool vec = p.vec != 0;
 
-  for (int i = tid; i < d; i += kThreads)
-    qv[i] = p.queries[int64_t(qi) * d + i];
+  S::prepare(p, qi, qv, tid);
   for (int i = tid; i < L; i += kThreads) {
     pool_s[i] = -INFINITY;
     pool_id[i] = -1;
@@ -309,8 +433,7 @@ __global__ void __launch_bounds__(kThreads)
   const float q2 = p.qnorm2[qi];
   if (warp == 0) {
     const int entry = int(p.entries[qi]);  // scored as row 0 if < 0
-    const float s = score_row<T, SIMF>(rows, entry < 0 ? 0 : entry, d, vec,
-                                       qv, q2, lane);
+    const float s = S::one(p, qv, q2, entry < 0 ? 0 : entry, lane);
     if (lane == 0) {
       pool_s[0] = s;
       pool_id[0] = entry;
@@ -378,12 +501,7 @@ __global__ void __launch_bounds__(kThreads)
     if (n_new == 0) continue;
     int p2 = 1;
     while (p2 < n_new) p2 <<= 1;
-    for (int s = warp; s < n_new; s += kWarps) {
-      const float sc = score_row<T, SIMF>(rows, sv_id[s], d, vec, qv, q2, lane);
-      if (lane == 0)
-        sv_key[s] = (static_cast<unsigned long long>(desc_bits(sc)) << 32) |
-                    unsigned(s);
-    }
+    S::many(p, qv, q2, sv_id, n_new, sv_key, tid);
     for (int s = n_new + tid; s < p2; s += kThreads) sv_key[s] = ~0ull;
     __syncthreads();
 
@@ -497,7 +615,8 @@ extern "C" int beam_search_launch(const int32_t* adj, int m, const void* rows,
                                   void* stream) {
   const BeamParams p{adj, m, rows, d, vec, queries, qnorm2, entries, L, E,
                      iters, static_cast<unsigned char*>(ws), out_ids,
-                     out_scores, out_visited, out_expanded};
+                     out_scores, out_visited, out_expanded, nullptr, nullptr,
+                     0, 0};
   const size_t smem = beam_layout(L, E, m, iters, d).total;
   if (ws == nullptr && smem > 232448) return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -515,5 +634,33 @@ extern "C" int beam_search_launch(const int32_t* adj, int m, const void* rows,
       default: err = launch_on<float, 2>(p, q, smem, s); break;
     }
   }
+  return int(err);
+}
+
+// The walk over PQ codes: codes [N, msub] uint8; codebooks [msub, ksub,
+// d / msub] float32; cnorm [msub, ksub] (the centroids' squared norms,
+// simf 0 only, else null); queries [Q, d] float32 as the `pq` provider
+// prepares them (centred; normalised for a cosine corpus) and qnorm2 [Q];
+// simf 0 euclidean or 1 dot product; vec: codes rows may be read in
+// 16-byte loads; ws null or Q * beam_smem_bytes_c(L, E, m, iters, msub *
+// ksub) bytes. Outputs and return as beam_search_launch.
+extern "C" int beam_search_codes_launch(
+    const int32_t* adj, int m, const uint8_t* codes, int msub, int ksub,
+    const float* codebooks, const float* cnorm, int d, int vec,
+    const float* queries, const float* qnorm2, const int64_t* entries, int q,
+    int L, int E, int iters, int simf, void* ws, int64_t* out_ids,
+    float* out_scores, int32_t* out_visited, int32_t* out_expanded,
+    void* stream) {
+  if (simf != 0 && simf != 1) return int(cudaErrorInvalidValue);
+  const BeamParams p{adj, m, codes, d, vec, queries, qnorm2, entries, L, E,
+                     iters, static_cast<unsigned char*>(ws), out_ids,
+                     out_scores, out_visited, out_expanded, codebooks, cnorm,
+                     msub, ksub};
+  const size_t smem = beam_layout(L, E, m, iters, msub * ksub).total;
+  if (ws == nullptr && smem > 232448) return int(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = simf == 0
+                              ? launch_on<uint8_t, 0>(p, q, smem, s)
+                              : launch_on<uint8_t, 1>(p, q, smem, s);
   return int(err);
 }

@@ -365,6 +365,9 @@ class SegmentReader:
         if res.codes_walk_steps:
             self.stats.increment(Counter.KNN_QUERY_CODES_WALK_STEPS,
                                  res.codes_walk_steps)
+        if res.codes_walk_launches:
+            self.stats.increment(Counter.KNN_QUERY_CODES_WALK_LAUNCHES,
+                                 res.codes_walk_launches)
         if "nvq" in sources:
             self.stats.increment(Counter.KNN_QUERY_NVQ_RERANKED_COUNT,
                                  reranked)

@@ -33,13 +33,15 @@ both layers, on the base layer alone, and candidates reranked.
 
 The walk itself (`ops/beam_kernel.py`) is one launch of a hand-written
 CUDA kernel for the row providers (`exact` and `pq_decoded`, objects that
-expose their rows and prepared queries) on a CUDA device, where the
-reference runs one compiled `while_loop`; the codes providers (`pq`,
-`scalar`) and every CPU search walk in its plain version, a loop of tensor
-operations. There, deduplication of new neighbors against the pool, the
-visited ring and each other is one per-row sort instead of the
-reference's pairwise equality masks: [Q, L + V + E*M] keys rather than
-[Q, E*M, L + V] booleans, with the same result.
+expose their rows and prepared queries) and the `pq` provider (an object
+that exposes its codes, codebooks and prepared queries; the kernel scores
+through a per-query ADC table) on a CUDA device, where the reference runs
+one compiled `while_loop`; the `scalar` provider and every CPU search walk
+in its plain version, a loop of tensor operations. There, deduplication
+of new neighbors against the pool, the visited ring and each other is one
+per-row sort instead of the reference's pairwise equality masks:
+[Q, L + V + E*M] keys rather than [Q, E*M, L + V] booleans, with the same
+result.
 """
 
 from __future__ import annotations
@@ -98,6 +100,7 @@ class SearchResult:
     reranked_count: torch.Tensor  # [Q]
     expanded_base_count: torch.Tensor  # [Q] base layer only
     codes_walk_steps: int = 0  # steps of the plain codes walk (both layers)
+    codes_walk_launches: int = 0  # launches of the codes walk's kernel
 
 
 ScoreFn = Callable[[torch.Tensor], torch.Tensor]  # ids [Q, C] -> [Q, C]
@@ -187,26 +190,40 @@ class PQDecodedProvider(RowProvider):
 
 
 
-def pq_provider(queries: torch.Tensor, codes: torch.Tensor,
-                codebooks: torch.Tensor, center: torch.Tensor | None,
-                simf: SimilarityFunction) -> ScoreFn:
-    """Codes-only scoring: gather the candidates' codebook rows (decode
-    without the center) and score them against the centered queries;
-    cosine corpora are encoded normalized, so cosine scores as a plain dot
-    of normalized queries."""
-    q = queries if center is None else queries - center
-    score_simf = simf
-    if simf is SimilarityFunction.COSINE:
-        q = q * torch.rsqrt(torch.sum(q * q, -1, keepdim=True) + 1e-30)
-        score_simf = SimilarityFunction.DOT_PRODUCT
-    sub = torch.arange(codebooks.shape[0], device=codes.device)
+class CodesProvider:
+    """Codes-only scoring (the `pq` provider): the candidates' codebook rows
+    are gathered (decode without the center) and scored against the
+    centered queries; cosine corpora are encoded normalized, so cosine
+    scores as a plain dot of normalized queries. Callable as a `ScoreFn`,
+    and it exposes what the beam kernel reads instead: `codes` [N, M]
+    uint8, `codebooks` [M, K, dsub] float32, `simf` (the similarity it
+    scores with: EUCLIDEAN or DOT_PRODUCT) and `prepared()` -> (queries
+    [Q, d] float32 as the formula uses them, their squared norms [Q])."""
 
-    def score(ids: torch.Tensor) -> torch.Tensor:
-        c = codes[ids.clamp(min=0)].long()  # [Q, C, M]
-        dec = codebooks[sub, c].reshape(*ids.shape, -1)  # [Q, C, d]
-        return batched_candidate_scores(q, dec, score_simf)
+    def __init__(self, queries: torch.Tensor, codes: torch.Tensor,
+                 codebooks: torch.Tensor, center: torch.Tensor | None,
+                 simf: SimilarityFunction):
+        q = queries if center is None else queries - center
+        if simf is SimilarityFunction.COSINE:
+            q = q * torch.rsqrt(torch.sum(q * q, -1, keepdim=True) + 1e-30)
+            simf = SimilarityFunction.DOT_PRODUCT
+        self.q, self.codes, self.codebooks, self.simf = (q, codes, codebooks,
+                                                         simf)
+        self._sub = torch.arange(codebooks.shape[0], device=codes.device)
+        self._q2 = None
 
-    return score
+    def prepared(self):
+        if self._q2 is None:
+            self._q2 = torch.sum(self.q * self.q, -1)
+        return self.q, self._q2
+
+    def decoded(self, ids: torch.Tensor) -> torch.Tensor:
+        """[*ids.shape, d] the candidates' codebook rows (no center)."""
+        c = self.codes[ids.clamp(min=0)].long()  # [Q, C, M]
+        return self.codebooks[self._sub, c].reshape(*ids.shape, -1)
+
+    def __call__(self, ids: torch.Tensor) -> torch.Tensor:
+        return batched_candidate_scores(self.q, self.decoded(ids), self.simf)
 
 
 def hamming_provider(queries: torch.Tensor, codes: torch.Tensor,
@@ -238,6 +255,7 @@ def beam_search(
     first_among_ties: bool = False,  # select like the reference where
     # scores tie in long runs (Hamming): the lower slot wins
     on_steps: Callable[[int], None] | None = None,  # the plain walk's steps
+    on_launches: Callable[[int], None] | None = None,  # codes kernel launches
 ):
     """Batched best-first graph search scoring through `score`.
 
@@ -245,14 +263,22 @@ def beam_search(
     expanded [Q]). Tombstoned nodes stay traversable (the reference's
     markNodeDeleted -> cleanup semantics); they are masked out of the
     results through `accept & live`. A row provider (`ExactProvider`,
-    `PQDecodedProvider`) walks in the beam kernel (one launch on a CUDA
-    device, its plain version on the CPU); the codes providers walk in the
-    plain loop, inside the span `searcher.codes_walk`, and report its
-    steps to `on_steps`.
+    `PQDecodedProvider`) and the `pq` provider (`CodesProvider`) walk in
+    the beam kernel (one launch on a CUDA device, its plain version on the
+    CPU); the `hamming` provider walks in the plain loop. A codes
+    provider's walk runs inside the span `searcher.codes_walk` and reports
+    the plain loop's steps to `on_steps`, the kernel's launches to
+    `on_launches`.
     """
     if isinstance(score, RowProvider):
         cand_ids, cand_scores, visited_n, expanded_n = beam_kernel.beam_search(
             adjacency, entry, score, q, L, E, max_iters)
+    elif isinstance(score, CodesProvider):
+        with phase("searcher.codes_walk"):
+            cand_ids, cand_scores, visited_n, expanded_n = (
+                beam_kernel.beam_search(
+                    adjacency, entry, score, q, L, E, max_iters,
+                    on_steps=on_steps, on_launches=on_launches))
     else:
         with phase("searcher.codes_walk"):
             cand_ids, cand_scores, visited_n, expanded_n = (
@@ -311,7 +337,7 @@ def search(
     the `rerank_floor` cut; without a source the approximate scores
     stand. Then top-k and the `threshold` cut. The NVQ rerank runs inside
     the span `searcher.nvq_rerank`; `codes_walk_steps` counts the plain
-    walk's steps."""
+    walk's steps, `codes_walk_launches` the codes kernel's launches."""
     rerank_src = None
     nvq_rerank = False
     ties = False
@@ -319,8 +345,8 @@ def search(
         if pq_decoded is not None:
             score = PQDecodedProvider(queries, pq_decoded, simf)
         else:
-            score = pq_provider(queries, pq_codes, pq_codebooks, pq_center,
-                                simf)
+            score = CodesProvider(queries, pq_codes, pq_codebooks, pq_center,
+                                  simf)
             if nvq is not None:
                 rerank_src = nvq.decode_rows
                 nvq_rerank = True
@@ -344,6 +370,7 @@ def search(
     iters = params.resolved_iters()
 
     steps: list[int] = []  # the plain walks' step counts
+    launches: list[int] = []  # the codes kernel's launch counts
     upper_expanded = 0
     if upper_adjacency is not None:
         # hierarchy layer: a short beam on the coarse graph picks each
@@ -352,12 +379,13 @@ def search(
             upper_adjacency, live, entry, score, qn, accept,
             L=UPPER_POOL, E=UPPER_EXPANSIONS, R=1, max_iters=UPPER_ITERS,
             masked_results=False, first_among_ties=ties,
-            on_steps=steps.append)
+            on_steps=steps.append, on_launches=launches.append)
         entry = torch.where(up_ids[:, 0] >= 0, up_ids[:, 0], entry)
     res_ids, res_scores, visited, base_expanded = beam_search(
         adjacency, live, entry, score, qn, accept,
         L=ef, E=e, R=r, max_iters=iters, masked_results=masked_results,
         first_among_ties=ties, on_steps=steps.append,
+        on_launches=launches.append,
     )
 
     if rerank_src is not None:
@@ -384,4 +412,5 @@ def search(
         reranked_count=reranked,
         expanded_base_count=base_expanded,
         codes_walk_steps=sum(steps),
+        codes_walk_launches=sum(launches),
     )

@@ -24,10 +24,16 @@ accept/live mask and the top-R stay with the caller
 The provider is a row provider of `models.searcher` (`ExactProvider`,
 `PQDecodedProvider`): `provider.rows` [N, d] float32 or bfloat16,
 `provider.simf`, and `provider.prepared()` -> (queries [Q, d] float32 as
-the scoring formula uses them, squared norms [Q]). The kernel follows the
-plain formula chain term by term (norms plus dot, the clamp, then
-1/(1+d2); bf16 rows round the candidate's squared norm, and for cosine its
-inverse norm, to bf16 as `PQDecodedProvider` does).
+the scoring formula uses them, squared norms [Q]); or its codes provider
+(`CodesProvider`, the `pq` provider): `provider.codes` [N, M] uint8 and
+`provider.codebooks` [M, K, dsub] float32 in place of the rows, `simf`
+EUCLIDEAN or DOT_PRODUCT. The kernel follows the plain formula chain term
+by term (norms plus dot, the clamp, then 1/(1+d2); bf16 rows round the
+candidate's squared norm, and for cosine its inverse norm, to bf16 as
+`PQDecodedProvider` does). Over codes it takes the dot from the query's
+ADC table (`codes_table_scores` is that scoring in plain PyTorch) and, for
+euclidean, the squared norm from the centroids' squared norms, which the
+wrapper computes once a launch.
 
 Tolerance against the plain version: the kernel sums each dot and norm in
 another float32 order. `kernel_error_bound` gives, per candidate, a bound
@@ -39,12 +45,18 @@ the other way. Decisions of
 the walk may differ only where the plain version's own scores lie within
 those bounds of a tie at a boundary (the top-E pick, the top-L merge):
 `beam_search_reference(..., tie_bound=...)`, given a per-candidate bound
-such as `kernel_error_bound`'s, reports those queries.
+such as `kernel_error_bound`'s, reports those queries. Over codes the
+kernel sums d products in other float32 orders than the plain decode (a
+table entry sums dsub of them, a score M table entries in the order of
+the subspaces); `codes_error_bound` bounds that from the worst case of
+each summation, (d + dsub + M) units of 2^-24 of the sum of the products'
+magnitudes, carried through the formula.
 
 `beam_search.launches` counts kernel launches (one a call, or one per
 WORKSPACE_BYTES of state for shapes past a block's shared memory) and
 nothing else, so a run can show that its build and search paths went
-through it; `beam_search.bf16_launches` counts those over bf16 rows.
+through it; `beam_search.bf16_launches` counts those over bf16 rows,
+`beam_search.codes_launches` those over PQ codes.
 """
 
 from __future__ import annotations
@@ -103,7 +115,8 @@ def _pow2_at_least(x: int) -> int:
 def beam_smem_bytes(L: int, E: int, M: int, max_iters: int,
                     d: int = 960) -> int:
     """Dynamic shared memory of one block of the kernel (`beam_layout` in
-    the source, region by region): the query (d floats), the pool (L
+    the source, region by region): the scoring state of d floats (the
+    query; over codes its ADC table, d = M x K of the PQ), the pool (L
     scores, ids and expanded flags), the visited ring (max_iters * E ids),
     the picks, the E * M new neighbours and their hash slots, the
     survivors' ids and sort keys (a power of two >= E * M), a scan
@@ -126,9 +139,11 @@ def beam_smem_bytes(L: int, E: int, M: int, max_iters: int,
 def beam_plan(L: int, E: int, M: int, max_iters: int,
               d: int) -> tuple[int, int]:
     """(shared memory a block, workspace bytes a query) of the kernel at
-    this shape: the state in shared memory where it fits a block, else in
-    a workspace in device memory. Raises ValueError naming the shape where
-    the kernel's 32-bit indexing of that state would overflow."""
+    this shape (`d` as `beam_smem_bytes` reads it: the dimension, or over
+    codes the PQ's M x K): the state in shared memory where it fits a
+    block, else in a workspace in device memory. Raises ValueError naming
+    the shape where the kernel's 32-bit indexing of that state would
+    overflow."""
     if E * M >= 2**28 or L + max_iters * E + E * M >= 2**28 or d >= 2**28:
         raise ValueError(
             f"beam_search: L={L}, E={E}, M={M}, max_iters={max_iters}, "
@@ -291,6 +306,57 @@ def kernel_error_bound(provider, ids: torch.Tensor) -> torch.Tensor:
     return e_dot / 2.0 + 2.0**-22 * s.abs() + 2.0**-24
 
 
+def codes_table_scores(provider, ids: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernel's scoring over codes: [Q, C] scores of
+    candidates `ids` [Q, C] of the codes `provider` from each query's ADC
+    table (T[m][k] = sum_j q[m dsub + j] cb[m][k][j]), its entries summed
+    in the order of the subspaces, as a thread of the kernel sums them;
+    for euclidean the centroids' squared norms likewise; then the plain
+    chain."""
+    q, q2 = provider.prepared()
+    cb = provider.codebooks
+    m, _, dsub = cb.shape
+    table = torch.einsum("qmj,mkj->qmk", q.reshape(-1, m, dsub), cb)
+    codes = provider.codes[ids.clamp(min=0)].long().transpose(1, 2)  # [Q,M,C]
+    dot = _sum_in_order(torch.gather(table, 2, codes))
+    if provider.simf is SimilarityFunction.EUCLIDEAN:
+        sub = torch.arange(m, device=codes.device)[:, None]
+        c2 = _sum_in_order(torch.sum(cb * cb, -1)[sub, codes])
+        return 1.0 / (1.0 + torch.clamp(q2[:, None] + c2 - 2.0 * dot,
+                                        min=0.0))
+    return (1.0 + dot) / 2.0
+
+
+def _sum_in_order(x: torch.Tensor) -> torch.Tensor:
+    """x [Q, M, C] summed over M one term after another -> [Q, C]."""
+    total = x[:, 0]
+    for i in range(1, x.shape[1]):
+        total = total + x[:, i]
+    return total
+
+
+def codes_error_bound(provider, ids: torch.Tensor) -> torch.Tensor:
+    """[Q, C] bound on |kernel score - plain score| for candidates `ids`
+    [Q, C] of the codes `provider` (see the module docstring): each side's
+    dot (and euclidean squared norm) is within (d + dsub + M) units of
+    2^-24 of the sum of its products' magnitudes (recursive summation in
+    any order), carried through the formula as `kernel_error_bound`
+    carries its dot."""
+    q, q2 = provider.prepared()
+    m, _, dsub = provider.codebooks.shape
+    dec = provider.decoded(ids)
+    mag = torch.sum((q[:, None, :] * dec).abs(), -1)  # >= |dot|
+    g = (m * dsub + dsub + m + 4) * 2.0**-24
+    s = provider(ids)
+    if provider.simf is SimilarityFunction.EUCLIDEAN:
+        c2 = torch.sum(dec * dec, -1)
+        e_d2 = g * (c2 + 2.0 * mag) + 2.0**-21 * (q2[:, None] + c2
+                                                   + 2.0 * mag)
+        den = torch.clamp(1.0 - e_d2 * s, min=0.5)
+        return e_d2 * s * s / den + 2.0**-22 * s
+    return g * mag / 2.0 + 2.0**-22 * s.abs() + 2.0**-24
+
+
 def _bind() -> ctypes.CDLL:
     """Build (once) and load the kernel, declaring its C signature."""
     lib = _kernels.load("beam_search")
@@ -302,6 +368,12 @@ def _bind() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.beam_smem_bytes_c.argtypes = [ctypes.c_int] * 5
         lib.beam_smem_bytes_c.restype = ctypes.c_longlong
+        codes = lib.beam_search_codes_launch
+        codes.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                          + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+                          + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+                          + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6)
+        codes.restype = ctypes.c_int
     return lib
 
 
@@ -311,31 +383,54 @@ _SIMF_CODE = {SimilarityFunction.EUCLIDEAN: 0,
 
 
 def beam_search(adjacency: torch.Tensor, entry, provider, q: int, L: int,
-                E: int, max_iters: int):
+                E: int, max_iters: int, on_steps=None, on_launches=None):
     """The walk for `q` queries from `entry` (an int, or [Q] ids) over
-    `adjacency` [N, M] int32, scored by the row `provider` -> (pool ids
-    [Q, L] int64, pool scores [Q, L], visited [Q], expanded [Q])."""
-    rows = provider.rows
+    `adjacency` [N, M] int32, scored by the row or codes `provider` ->
+    (pool ids [Q, L] int64, pool scores [Q, L], visited [Q], expanded
+    [Q]). On the CPU the plain walk reports its steps to `on_steps`; on a
+    card the kernel reports its launches to `on_launches`."""
+    codes = getattr(provider, "codebooks", None) is not None
+    data = provider.codes if codes else provider.rows
+    what = "codes" if codes else "rows"
     if adjacency.device.type == "cpu":
-        if rows.device.type != "cpu":
-            raise ValueError(f"beam_search: adjacency on the CPU, rows on "
-                             f"{rows.device}")
+        if data.device.type != "cpu":
+            raise ValueError(f"beam_search: adjacency on the CPU, {what} on "
+                             f"{data.device}")
         return beam_search_reference(adjacency, entry, provider, q, L, E,
-                                     max_iters)
+                                     max_iters, on_steps=on_steps)
     dev = adjacency.device
     queries, q2 = provider.prepared()
-    if not adjacency.is_cuda or {rows.device, queries.device} != {dev}:
+    devices = {data.device, queries.device}
+    if codes:
+        devices.add(provider.codebooks.device)
+    if not adjacency.is_cuda or devices != {dev}:
         raise ValueError(
-            f"beam_search: adjacency on {adjacency.device}, rows on "
-            f"{rows.device}, queries on {queries.device}: all must be on one "
+            f"beam_search: adjacency on {adjacency.device}, {what} on "
+            f"{data.device}, queries on {queries.device}: all must be on one "
             "CUDA device (or all on the CPU)")
     if adjacency.dtype != torch.int32 or adjacency.dim() != 2:
         raise ValueError(f"beam_search: adjacency must be [N, M] int32, got "
                          f"{tuple(adjacency.shape)} {adjacency.dtype}")
-    if rows.dtype not in (torch.float32, torch.bfloat16) or rows.dim() != 2:
-        raise ValueError(f"beam_search: rows must be [N, d] float32 or "
-                         f"bfloat16, got {tuple(rows.shape)} {rows.dtype}")
-    n, d = rows.shape
+    if codes:
+        cb = provider.codebooks
+        if (data.dtype != torch.uint8 or data.dim() != 2
+                or cb.dtype != torch.float32 or cb.dim() != 3
+                or cb.shape[0] != data.shape[1] or not cb.is_contiguous()):
+            raise ValueError(
+                f"beam_search: codes must be [N, M] uint8 and codebooks "
+                f"[M, K, dsub] float32 (contiguous), got "
+                f"{tuple(data.shape)} {data.dtype}, {tuple(cb.shape)} "
+                f"{cb.dtype}")
+        msub, ksub, dsub = cb.shape
+        n, d, state = data.shape[0], msub * dsub, msub * ksub
+    else:
+        if data.dtype not in (torch.float32, torch.bfloat16) or (
+                data.dim() != 2):
+            raise ValueError(f"beam_search: rows must be [N, d] float32 or "
+                             f"bfloat16, got {tuple(data.shape)} "
+                             f"{data.dtype}")
+        n, d = data.shape
+        state = d
     m = adjacency.shape[1]
     if (queries.shape != (q, d) or queries.dtype != torch.float32
             or q2.shape != (q,) or q2.dtype != torch.float32):
@@ -346,9 +441,9 @@ def beam_search(adjacency: torch.Tensor, entry, provider, q: int, L: int,
             and q < 2**31):
         raise ValueError(f"beam_search: shape Q={q} L={L} E={E} M={m} "
                          f"max_iters={max_iters} N={n} d={d} out of range")
-    _, ws_query = beam_plan(L, E, m, max_iters, d)
-    if not (rows.is_contiguous() and adjacency.is_contiguous()):
-        raise ValueError("beam_search: rows and adjacency must be "
+    _, ws_query = beam_plan(L, E, m, max_iters, state)
+    if not (data.is_contiguous() and adjacency.is_contiguous()):
+        raise ValueError(f"beam_search: {what} and adjacency must be "
                          "contiguous")
     if isinstance(entry, torch.Tensor) and entry.dim() == 1:
         entries = entry.to(device=dev, dtype=torch.long).contiguous()
@@ -365,8 +460,11 @@ def beam_search(adjacency: torch.Tensor, entry, provider, q: int, L: int,
     expanded = torch.empty((q,), dtype=torch.int32, device=dev)
     if q == 0:
         return out_ids, out_scores, visited, expanded
-    vec = int(rows.data_ptr() % 16 == 0 and (d * rows.element_size()) % 16
-              == 0)
+    width = data.shape[1] * data.element_size()
+    vec = int(data.data_ptr() % 16 == 0 and width % 16 == 0)
+    cnorm = None
+    if codes and provider.simf is SimilarityFunction.EUCLIDEAN:
+        cnorm = torch.sum(cb * cb, -1).contiguous()  # [M, K], one a launch
     # past a block's shared memory, each query's state goes to a workspace
     # in device memory, in launches of at most WORKSPACE_BYTES of it
     step = q if not ws_query else max(1, WORKSPACE_BYTES // ws_query)
@@ -374,27 +472,41 @@ def beam_search(adjacency: torch.Tensor, entry, provider, q: int, L: int,
           if ws_query else None)
     lib = _bind()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    bf16 = rows.dtype == torch.bfloat16
+    bf16 = data.dtype == torch.bfloat16
+    ws_ptr = None if ws is None else ws.data_ptr()
+    launched = 0
     for lo in range(0, q, step):
         hi = min(lo + step, q)
+        outs = (out_ids[lo].data_ptr(), out_scores[lo].data_ptr(),
+                visited[lo:].data_ptr(), expanded[lo:].data_ptr(), stream)
         with torch.cuda.device(dev):
-            err = lib.beam_search_launch(
-                adjacency.data_ptr(), m, rows.data_ptr(), int(bf16), d, vec,
-                queries[lo].data_ptr(), q2[lo:].data_ptr(),
-                entries[lo:].data_ptr(), hi - lo, L, E, max_iters,
-                _SIMF_CODE[provider.simf],
-                None if ws is None else ws.data_ptr(), out_ids[lo].data_ptr(),
-                out_scores[lo].data_ptr(), visited[lo:].data_ptr(),
-                expanded[lo:].data_ptr(), stream)
+            if codes:
+                err = lib.beam_search_codes_launch(
+                    adjacency.data_ptr(), m, data.data_ptr(), msub, ksub,
+                    cb.data_ptr(), None if cnorm is None else cnorm.data_ptr(),
+                    d, vec, queries[lo].data_ptr(), q2[lo:].data_ptr(),
+                    entries[lo:].data_ptr(), hi - lo, L, E, max_iters,
+                    _SIMF_CODE[provider.simf], ws_ptr, *outs)
+            else:
+                err = lib.beam_search_launch(
+                    adjacency.data_ptr(), m, data.data_ptr(), int(bf16), d,
+                    vec, queries[lo].data_ptr(), q2[lo:].data_ptr(),
+                    entries[lo:].data_ptr(), hi - lo, L, E, max_iters,
+                    _SIMF_CODE[provider.simf], ws_ptr, *outs)
         if err != 0:
             raise RuntimeError(f"beam_search: kernel launch failed, "
                                f"cudaError {err}")
+        launched += 1
         with _COUNT_LOCK:  # searches and merges launch from several threads
             beam_search.launches += 1
             beam_search.bf16_launches += bf16
+            beam_search.codes_launches += codes
+    if on_launches is not None:
+        on_launches(launched)
     return out_ids, out_scores, visited, expanded
 
 
 beam_search.launches = 0  # every launch
 beam_search.bf16_launches = 0  # those over bf16 rows (the decoded cache)
+beam_search.codes_launches = 0  # those over PQ codes (the `pq` provider)
 _COUNT_LOCK = threading.Lock()

@@ -918,18 +918,25 @@ def _provider(queries, x, dtype, simf):
 
 def _hold_walk(adj, entry, prov, q, L, E, iters, launches=1):
     """The kernel's walk against the plain one: where the plain walk has
-    no near tie (beam_kernel.kernel_error_bound), the same pool as a set,
-    scores within the bound, the same counters; elsewhere the pools
-    overlap almost wholly. Returns the kernel's outputs."""
+    no near tie (beam_kernel.kernel_error_bound; over codes
+    codes_error_bound), the same pool as a set, scores within the bound,
+    the same counters; elsewhere the pools overlap almost wholly. Returns
+    the kernel's outputs."""
     from opensearch_jvector_tpu_torch.ops import beam_kernel
 
-    before = beam_kernel.beam_search.launches
+    codes = hasattr(prov, "codebooks")
+    error_bound = (beam_kernel.codes_error_bound if codes
+                   else beam_kernel.kernel_error_bound)
+    before = (beam_kernel.beam_search.launches,
+              beam_kernel.beam_search.codes_launches)
     got = beam_kernel.beam_search(adj, entry, prov, q, L, E, iters)
     torch.cuda.synchronize()
-    assert beam_kernel.beam_search.launches == before + launches
+    assert beam_kernel.beam_search.launches == before[0] + launches
+    assert beam_kernel.beam_search.codes_launches == before[1] + (
+        launches if codes else 0)
     ids, scores, vis, exp, near, bound = beam_kernel.beam_search_reference(
         adj, entry, prov, q, L, E, iters,
-        tie_bound=lambda i: beam_kernel.kernel_error_bound(prov, i))
+        tie_bound=lambda i: error_bound(prov, i))
     gi, gs, gv, ge = got
     assert gi.shape == (q, L) and gs.shape == (q, L)
     si, so = torch.sort(gi, 1)
@@ -1119,6 +1126,172 @@ def test_beam_kernel_rejects_inputs_it_does_not_take(card):
         beam_kernel.beam_search(adj.cpu(), 0, prov, 512, 100, 8, 21)
     with pytest.raises(ValueError):
         beam_kernel.beam_search(adj, 0, prov, 100, 100, 8, 21)  # Q
+
+
+# -- the walk over PQ codes (the `pq` provider) -----------------------------
+
+def _codes_provider(x, queries, simf, msub):
+    """A PQ of `msub` subspaces (K 256) trained on the card over rows `x`,
+    and the codes provider of `queries` over its codes."""
+    from opensearch_jvector_tpu_torch.models import pq as tpq
+    from opensearch_jvector_tpu_torch.models import searcher as tsearcher
+
+    pq = tpq.train_pq(x, simf, msub)
+    assert pq.codebooks.shape[:2] == (msub, 256)
+    prov = tsearcher.CodesProvider(queries, tpq.encode(pq, x, simf),
+                                   pq.codebooks, pq.center, simf)
+    prov.center = pq.center  # for a search built from the same PQ
+    return prov
+
+
+# (Q, L, E, degree, d, PQ M, simf, per-query entries): the NVQ deployment's
+# batch (512 queries, ef 200, E 16, degree 32, PQ48 at d 96, cosine), ef
+# 100 with an entry a query, PQ64 at d 128 (euclidean and dot), the
+# hierarchy descent (16, 4, upper degree 16, 8), M 24 (codes read a byte at
+# a time, dsub 5), and PQ192 at d 768, whose table and state outgrow a
+# block's shared memory (the workspace)
+CODES_SHAPES = [
+    (512, 200, 16, 32, 96, 48, "COSINE", False),
+    (256, 100, 16, 32, 96, 48, "EUCLIDEAN", True),
+    (128, 200, 16, 38, 128, 64, "EUCLIDEAN", False),
+    (128, 100, 8, 38, 128, 64, "DOT_PRODUCT", True),
+    (64, 16, 4, 16, 96, 48, "COSINE", True),
+    (64, 77, 8, 24, 120, 24, "EUCLIDEAN", False),
+    (32, 200, 16, 38, 768, 192, "COSINE", False),
+]
+
+
+@pytest.mark.parametrize("shape", CODES_SHAPES, ids=str)
+def test_codes_walk_kernel_matches_plain(shape, card):
+    from opensearch_jvector_tpu_torch.ops import beam_kernel
+
+    q, L, e, m, d, msub, simf, per_query = shape
+    x, adj, queries = _walk_graph(card, 20_000, d, m, seed=sum(shape[:6]))
+    if simf == "DOT_PRODUCT":  # unit rows keep dot scores in [0, 1]
+        x = x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+    prov = _codes_provider(x, queries[:q], SimilarityFunction[simf], msub)
+    entry = (torch.as_tensor(np.random.default_rng(q).integers(0, 20_000, q),
+                             device=card) if per_query else 17)
+    iters = max(8, -(-L // e))
+    state = msub * 256
+    shared = beam_kernel.beam_plan(L, e, m, iters, state)[1] == 0
+    assert shared == (msub < 192)
+    _hold_walk(adj, entry, prov, q, L, e, iters)
+
+
+def test_codes_walk_kernel_workspace_matches_plain(card, monkeypatch):
+    """The codes kernel with its table and state in device memory (forced
+    at the deployment's shape: no shared memory, 8 queries a launch)."""
+    from opensearch_jvector_tpu_torch.ops import beam_kernel
+
+    x, adj, queries = _walk_graph(card, 20_000, 96, 32, seed=25)
+    prov = _codes_provider(x, queries[:64], SimilarityFunction.COSINE, 48)
+    monkeypatch.setattr(beam_kernel, "SMEM_LIMIT", 0)
+    monkeypatch.setattr(beam_kernel, "WORKSPACE_BYTES", 8 * beam_kernel
+                        .beam_smem_bytes(200, 16, 32, 13, 48 * 256))
+    _hold_walk(adj, 3, prov, 64, 200, 16, 13, launches=8)
+
+
+def test_codes_walk_repeat_launches_are_identical(card):
+    from opensearch_jvector_tpu_torch.ops import beam_kernel
+
+    x, adj, queries = _walk_graph(card, 20_000, 96, 32, seed=26)
+    prov = _codes_provider(x, queries, SimilarityFunction.EUCLIDEAN, 48)
+    first = beam_kernel.beam_search(adj, 3, prov, 512, 200, 16, 13)
+    second = beam_kernel.beam_search(adj, 3, prov, 512, 200, 16, 13)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_the_hierarchy_descent_over_codes_on_card(card, monkeypatch):
+    """`searcher.search` over PQ codes with an upper layer: two launches
+    (the descent and the base walk), no plain step; the answers equal the
+    plain route's on the card on almost every query."""
+    from opensearch_jvector_tpu_torch.models import searcher as tsearcher
+    from opensearch_jvector_tpu_torch.ops import beam_kernel
+
+    x, adj, queries = _walk_graph(card, 20_000, 96, 32, seed=27)
+    prov = _codes_provider(x, queries, SimilarityFunction.COSINE, 48)
+    upper = adj[:, :16].contiguous()
+    live = torch.ones(20_000, dtype=torch.bool, device=card)
+    kw = dict(pq_codes=prov.codes, pq_codebooks=prov.codebooks,
+              pq_center=prov.center, vectors=x,
+              upper_adjacency=upper)
+    params = tsearcher.SearchParams(k=10, ef_search=200)
+    before = beam_kernel.beam_search.codes_launches
+    got = tsearcher.search(adj, live, 0, queries, params,
+                           SimilarityFunction.COSINE, **kw)
+    assert beam_kernel.beam_search.codes_launches == before + 2
+    assert got.codes_walk_launches == 2 and got.codes_walk_steps == 0
+    monkeypatch.setattr(beam_kernel, "beam_search",
+                        lambda a, e, p, q, L, E, it, **k:
+                        beam_kernel.beam_search_reference(
+                            a, e, p, q, L, E, it,
+                            on_steps=k.get("on_steps")))
+    plain = tsearcher.search(adj, live, 0, queries, params,
+                             SimilarityFunction.COSINE, **kw)
+    assert plain.codes_walk_steps > 0 and plain.codes_walk_launches == 0
+    same = (got.ids == plain.ids).all(1)
+    assert float(same.float().mean()) >= 0.95
+    assert recall_at_k(got.ids.cpu().numpy(), plain.ids.cpu().numpy(),
+                       10) >= 0.995
+
+
+def test_codes_walk_rejects_inputs_it_does_not_take(card):
+    from opensearch_jvector_tpu_torch.models import searcher as tsearcher
+    from opensearch_jvector_tpu_torch.ops import beam_kernel
+
+    x, adj, queries = _walk_graph(card, 5000, 96, 16, seed=28)
+    prov = _codes_provider(x, queries, SimilarityFunction.EUCLIDEAN, 48)
+    with pytest.raises(ValueError, match="L=300000000"):
+        beam_kernel.beam_search(adj, 0, prov, 512, 300_000_000, 16, 600)
+    with pytest.raises(ValueError):  # mixed devices never fall back
+        beam_kernel.beam_search(adj.cpu(), 0, prov, 512, 100, 8, 21)
+    with pytest.raises(ValueError):  # codes must be uint8
+        bad = tsearcher.CodesProvider(queries, prov.codes.int(),
+                                      prov.codebooks, None,
+                                      SimilarityFunction.EUCLIDEAN)
+        beam_kernel.beam_search(adj, 0, bad, 512, 100, 8, 21)
+    with pytest.raises(ValueError):  # Q
+        beam_kernel.beam_search(adj, 0, prov, 100, 100, 8, 21)
+
+
+def test_nvq_cosine_index_walks_codes_in_the_kernel_on_card(card, tmp_path):
+    """An NVQ cosine segment (PQ48 at d 96) on the beam tier: on the card
+    the walk is the kernel (`knn_query_codes_walk_launches` rises, the
+    plain steps do not), on the CPU the plain walk over the same
+    directory; recall@10 against the exact cosine top 10 within 0.002."""
+    from opensearch_jvector_tpu_torch.api.stats import Counter, StatsRegistry
+
+    rng = np.random.default_rng(29)
+    rows, queries = _latent(rng, 6000, 96), _latent(rng, 200, 96)
+    cfg = DiskAnnConfig(dim=96, similarity=SimilarityFunction.COSINE, m=32,
+                        num_pq_subspaces=48, quantization_type="nvq+pq",
+                        nvq_num_subvectors=2)
+    sc = SearchConfig(k=10, ef_search=200)
+    truth = ground_truth_topk(torch.from_numpy(queries),
+                              torch.from_numpy(rows), 10,
+                              SimilarityFunction.COSINE)
+    GLOBAL_SETTINGS.put(SETTING, 0)
+    try:
+        stats = StatsRegistry()
+        idx = VectorIndex(tmp_path, cfg, device=card, stats=stats)
+        idx.add_batch(np.arange(6000), rows)
+        idx.flush()
+        got = idx.search(queries, sc)
+        card_stats = stats.snapshot()
+        cpu_stats = StatsRegistry()
+        cpu = VectorIndex(tmp_path, device="cpu", stats=cpu_stats).search(
+            queries, sc)
+    finally:
+        GLOBAL_SETTINGS.put(SETTING, -1)
+    assert card_stats["knn_query_codes_walk_launches"] == 1
+    assert card_stats["knn_query_codes_walk_steps"] == 0
+    assert cpu_stats.get(Counter.KNN_QUERY_CODES_WALK_STEPS) > 0
+    assert cpu_stats.get(Counter.KNN_QUERY_CODES_WALK_LAUNCHES) == 0
+    r_card = recall_at_k(got.doc_ids, truth, 10)
+    r_cpu = recall_at_k(cpu.doc_ids, truth, 10)
+    assert r_card >= 0.95 and abs(r_card - r_cpu) <= 0.002, (r_card, r_cpu)
+    assert got.reranked > 0
 
 
 def _prune_case(card, b, c, d, dtype, simf, seed):

@@ -191,8 +191,8 @@ def test_stats_keys_match(lifecycle):
     """The port reports the reference's keys but for those of its stacked
     mesh engine, which the port does not have, and beside them its graph
     build's work counts, the rows its host rerank kernel scored and the
-    plain codes walk's steps and NVQ-reranked rows, which the reference
-    does not count."""
+    codes walk's plain steps and kernel launches and NVQ-reranked rows,
+    which the reference does not count."""
     j, t = lifecycle
     a = _req(j, "GET", "/_plugins/_knn/stats")
     b = _req(t, "GET", "/_plugins/_knn/stats")
@@ -205,6 +205,7 @@ def test_stats_keys_match(lifecycle):
                  "knn_query_row_store_pages_advised",
                  "knn_query_rerank_buffer_reuses",
                  "knn_query_codes_walk_steps",
+                 "knn_query_codes_walk_launches",
                  "knn_query_nvq_reranked_count"}
     reference, port = (set(r[1]["nodes"]["local"]) for r in (a, b))
     # the seven counters of the reference's stacked mesh engine
